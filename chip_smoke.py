@@ -17,12 +17,28 @@ Phases, one short line each:
                  held against the same render on the CPU (plain versions)
   render-mesh    the box plus a 16200-triangle UV sphere (K1 at its design
                  size), 512x512, 4 spp, depth 8
+  kernel-K2      the block march against its plain version, closest hit and
+                 any-hit, on 65536 camera rays and first-bounce rays of the
+                 march scene and on random rays in a random soup; times and
+                 bound on the bounce rays
+  kernel-K3K4    the corridor kernel against its plain version (slots and
+                 overflow equal) and the pair sweep against its plain version
+                 on the pairs scene's camera and bounce rays, then the whole
+                 pair route against the plain per-lane march; times and bounds
+  render-march   Renderer.render of the 51,236-triangle march scene at
+                 512x512, 16 spp, depth 8 after a warm-up frame, through K2;
+                 then a 64x64 card render held against the CPU render
+  render-pairs   the same for the 105,012-triangle pairs scene, through K3
+                 and K4 (and K2 for corridors longer than K)
+  pairs-by-march the pairs scene's frame again with MCPT_TRAVERSAL=march,
+                 beside render-pairs' wall: which route is faster on the card
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero;
 without a CUDA device the script exits 1 before printing any result.
 A watchdog ends the run after WATCHDOG_S seconds, naming the phase.
 """
 
+import functools
 import json
 import os
 import signal
@@ -45,9 +61,10 @@ AVG_BOUNCES = 5.5
 #: loop: p = d x e2 (9), det (5), t0 = o - p0 (3), v (6), q = t0 x e1 (9),
 #: w (6), t (6), v + w (1), the division (1)
 K1_OPS_PER_PAIR = 46
-#: tolerance of K1 against its plain version (expected: bit-equal, both
-#: round every multiply and add on its own in the same order)
-K1_ATOL = K1_RTOL = 1e-5
+#: fp32 operations per (ray, chunk AABB) slab test in csrc/ray_tests.cuh's
+#: chunk_entry: 6 subtractions, 6 multiplications, 6 min/max per axis, 4 to
+#: combine the axes, 2 against [t_min, t_max], 2 compares, 1 clamp
+SLAB_OPS = 27
 
 _phase = ["start"]
 
@@ -115,10 +132,43 @@ def cuda_ms(fn, reps, warmup=2):
     return float(np.median(times))
 
 
-def compare_hits(got, ref, o, d, tris, t_min, label):
-    """K1 against its plain version: valid and inside equal, prim equal
-    except on exact-t ties (the other prim must reproduce the same t),
-    t/v/w within K1_ATOL + K1_RTOL * |ref|.  Returns max |t,v,w| error."""
+#: bytes of one hit record written: t, prim, v, w (4 each), inside, valid
+HIT_BYTES = 4 + 4 + 4 + 4 + 1 + 1
+#: the card's memory rate (H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+
+
+@functools.lru_cache(maxsize=None)
+def peak_fp32():
+    """(fp32 FLOP/s outside the tensor cores, how it was reckoned): SMs x
+    128 lanes x 2 (a fused multiply-add) x the maximum SM clock."""
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return (props.multi_processor_count * 128 * 2 * clock_mhz * 1e6,
+            f"{props.multi_processor_count} SMs x {clock_mhz:.0f} MHz")
+
+
+def bound(ops, nbytes):
+    """The least time the card could take: the larger of ops over the fp32
+    peak and bytes over the memory rate.  Returns (ms, what bounds it)."""
+    ops_ms = ops / peak_fp32()[0] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def same_hits(got, ref, o, d, tris, t_min, label, any_hit=False):
+    """A kernel against its plain version, which rounds every multiply and
+    add on its own in the same order (tests/test_pallas_pairs.py::
+    _assert_same_hits, at tolerance 0): valid equal; in closest-hit mode
+    t bit-equal and inside equal; prim may differ only where the kernel's
+    triangle gives the same t bit for bit, and v, w are bit-equal where
+    prim is equal.  In any-hit mode only valid is compared: K2's lanes
+    stop at their first chunk with a hit, in another order than the
+    plain version's.  tris: [P, 12] packed rows by global prim id.
+    Returns (max |err| of t, v, w where compared, hits, prim ties)."""
     import torch
 
     from mcpt_tpu_torch.ops.intersect import intersect_triangle
@@ -127,23 +177,24 @@ def compare_hits(got, ref, o, d, tris, t_min, label):
         raise AssertionError(f"{label}: valid differs on "
                              f"{int((got.valid != ref.valid).sum())} rays")
     m = ref.valid
+    if any_hit:
+        return 0.0, int(m.sum()), 0
+    same = m & (got.prim == ref.prim)
+    err = 0.0
+    for name, sel in (("t", m), ("v", same), ("w", same)):
+        x = (getattr(got, name) - getattr(ref, name))[sel].abs()
+        err = max(err, float(x.max()) if x.numel() else 0.0)
+    if err != 0.0 or not torch.equal(got.t, ref.t):
+        raise AssertionError(f"{label}: t, v or w differs (max |err| {err})")
     if not torch.equal(got.inside[m], ref.inside[m]):
         raise AssertionError(f"{label}: inside differs")
-    err = 0.0
-    for name in ("t", "v", "w"):
-        a, b = getattr(got, name)[m], getattr(ref, name)[m]
-        if not torch.allclose(a, b, rtol=K1_RTOL, atol=K1_ATOL):
-            raise AssertionError(f"{label}: {name} differs")
-        if a.numel():
-            err = max(err, float((a - b).abs().max()))
-    diff = m & (got.prim != ref.prim)
+    diff = m & ~same
     if bool(diff.any()):
         pid = got.prim[diff].long()
         hit, t, _, _, _ = intersect_triangle(
             o[diff], d[diff], tris[pid, 0:3], tris[pid, 3:6], tris[pid, 6:9],
             t_min[diff], torch.full_like(t_min[diff], 3.4e38))
-        if not (bool(hit.all()) and torch.allclose(
-                t, ref.t[diff], rtol=K1_RTOL, atol=K1_ATOL)):
+        if not (bool(hit.all()) and torch.equal(t, ref.t[diff])):
             raise AssertionError(f"{label}: prim differs beyond exact ties")
     return err, int(m.sum()), int(diff.sum())
 
@@ -185,8 +236,10 @@ def _k1_pair(o, d, t_min, t_max, tris, label):
     for any_hit in (False, True):
         got = ds.dense_sweep(o, d, t_min, t_max, tris, any_hit=any_hit)
         ref = ds.dense_sweep_plain(o, d, t_min, t_max, tris, any_hit=any_hit)
-        errs.append(compare_hits(got, ref, o, d, tris, t_min,
-                                 f"{label} any_hit={any_hit}"))
+        # K1's any-hit mode keeps the nearest opaque hit: every output
+        # is compared in both modes
+        errs.append(same_hits(got, ref, o, d, tris, t_min,
+                              f"{label} any_hit={any_hit}"))
     return errs
 
 
@@ -218,18 +271,12 @@ def phase_kernel(dev):
     ms = cuda_ms(lambda: ds.dense_sweep(o, d, t_min, t_max, tris), reps=20)
     plain_ms = cuda_ms(
         lambda: ds.dense_sweep_plain(o, d, t_min, t_max, tris), reps=5, warmup=1)
-    props = torch.cuda.get_device_properties(0)
-    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    peak_flops = props.multi_processor_count * 128 * 2 * clock_mhz * 1e6
     live = int((t_max > t_min).sum())
-    ops_ms = K1_OPS_PER_PAIR * live * p / peak_flops * 1e3
-    nbytes = n * (3 + 3 + 1 + 1) * 4 + p * 12 * 4 + n * (4 + 4 + 4 + 4 + 1 + 1)
-    bytes_ms = nbytes / 3.35e12 * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    nbytes = n * (3 + 3 + 1 + 1) * 4 + p * 12 * 4 + n * HIT_BYTES
+    bound_ms, bound_by = bound(K1_OPS_PER_PAIR * live * p, nbytes)
     say(f"kernel-K1(a): {ms:.3f} ms (plain {plain_ms:.3f} ms), bound "
-        f"{bound_ms:.3f} ms by {bound_by} at {peak_flops / 1e12:.1f} TFLOP/s "
-        f"fp32 peak ({props.multi_processor_count} SMs x {clock_mhz:.0f} MHz)")
+        f"{bound_ms:.3f} ms by {bound_by} at {peak_fp32()[0] / 1e12:.1f} "
+        f"TFLOP/s fp32 peak ({peak_fp32()[1]})")
 
     # (b) the main path's shapes: the Cornell box's triangles against the
     # first 64k-ray tile of a 512x512 frame and its first-bounce rays
@@ -271,20 +318,49 @@ def phase_kernel(dev):
     }
 
 
+def _counters():
+    from mcpt_tpu_torch.ops import dense_sweep as ds
+    from mcpt_tpu_torch.ops import march_sweep as msw
+    from mcpt_tpu_torch.ops import pair_sweep as psw
+
+    return ((ds, "launches"), (ds, "any_hit_launches"),
+            (msw, "launches"), (msw, "any_hit_launches"),
+            (psw, "corridor_launches"), (psw, "pair_launches"))
+
+
+def reset_counts():
+    for mod, attr in _counters():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    """Kernel launches since reset_counts(): K1, K2 (and how many of each
+    were any-hit), K3, K4."""
+    c = {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
+         for mod, attr in _counters()}
+    return {
+        "K1": c["dense_sweep.launches"],
+        "K1_any": c["dense_sweep.any_hit_launches"],
+        "K2": c["march_sweep.launches"],
+        "K2_any": c["march_sweep.any_hit_launches"],
+        "K3": c["pair_sweep.corridor_launches"],
+        "K4": c["pair_sweep.pair_launches"],
+    }
+
+
 def _render_timed(renderer, spp, frame_base):
+    """One timed frame; the kernel counts are set to 0 just before it and
+    read just after."""
     import torch
 
-    from mcpt_tpu_torch.ops import dense_sweep as ds
-
     torch.cuda.synchronize()
-    ds.launches = ds.any_hit_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     img = renderer.render(spp=spp, tile=TILE, spp_chunk=SPP_CHUNK,
                           frame_base=frame_base)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    closest = ds.launches - ds.any_hit_launches
-    return img, wall, closest, ds.any_hit_launches
+    return img, wall, read_counts()
 
 
 def _check_image(img, label):
@@ -298,7 +374,9 @@ def phase_render_cornell(dev, smi):
 
     r = Renderer(cornell_box(), device=dev)
     r.render(spp=SPP, tile=TILE, spp_chunk=SPP_CHUNK)  # warm-up frame
-    img, wall, n_closest, n_any = _render_timed(r, SPP, frame_base=1)
+    img, wall, counts = _render_timed(r, SPP, frame_base=1)
+    n_any = counts["K1_any"]
+    n_closest = counts["K1"] - n_any
     _check_image(img, "render-cornell")
     if n_closest <= 0 or n_any <= 0:
         raise AssertionError("render-cornell: K1 not launched in both modes "
@@ -309,19 +387,27 @@ def phase_render_cornell(dev, smi):
         f"{n_closest} closest + {n_any} any-hit; mean "
         f"{np.round(img.mean(axis=(0, 1)), 4).tolist()}")
 
-    # the same render on the card and on the CPU (plain versions), same seeds
-    small = cornell_box(res=64, spp=4)
+    card_vs_cpu(cornell_box, dev, "render-cornell")
+    return n_closest + n_any
+
+
+def card_vs_cpu(make_config, dev, label):
+    """The same 64x64, 4 spp render on the card and on the CPU (plain
+    versions), same seeds: >= 99% of pixels within rtol 1e-3, atol 1e-4,
+    channel means within 1e-3 relative."""
+    from mcpt_tpu_torch.render.renderer import Renderer
+
+    small = make_config(res=64, spp=4)
     a = Renderer(small, device=dev).render(spp=4, tile=TILE, spp_chunk=4)
     b = Renderer(small, device="cpu").render(spp=4, tile=TILE, spp_chunk=4)
-    _check_image(a, "render-cornell 64x64")
+    _check_image(a, f"{label} 64x64")
     close = np.isclose(a, b, rtol=1e-3, atol=1e-4).all(axis=-1)
     rel = np.abs(a.mean(axis=(0, 1)) / b.mean(axis=(0, 1)) - 1.0)
-    say(f"render-cornell: 64x64 4spp card vs cpu: {close.mean() * 100:.2f}% "
+    say(f"{label}: 64x64 4spp card vs cpu: {close.mean() * 100:.2f}% "
         f"pixels within rtol 1e-3 atol 1e-4, channel means rel diff "
         f"{rel.max():.2e}")
     if close.mean() < 0.99 or rel.max() > 1e-3:
-        raise AssertionError("render-cornell: card and CPU renders disagree")
-    return n_closest + n_any
+        raise AssertionError(f"{label}: card and CPU renders disagree")
 
 
 def phase_render_mesh(dev, smi):
@@ -331,12 +417,281 @@ def phase_render_mesh(dev, smi):
     spp = 4
     r = Renderer(cornell_box(spp=spp, sphere=True), device=dev)
     p = r.scene.geom.packed_tris.shape[0]
-    img, wall, n_closest, n_any = _render_timed(r, spp, frame_base=0)
+    img, wall, counts = _render_timed(r, spp, frame_base=0)
     _check_image(img, "render-mesh")
     rays = RES * RES * spp * (1 + 2 * AVG_BOUNCES)
     say(f"render-mesh: {p} prims {RES}x{RES} {spp}spp d{DEPTH} wall "
         f"{wall:.3f} s, {rays / wall / 1e6:.2f} Mrays/s on {smi}; K1 "
-        f"launches {n_closest} closest + {n_any} any-hit")
+        f"launches {counts['K1'] - counts['K1_any']} closest + "
+        f"{counts['K1_any']} any-hit")
+
+
+def camera_and_bounce(scene, cam, dev, seed=3):
+    """The main path's first two traces at their real shapes: 64k camera
+    rays of a 512x512 frame (every 4th pixel, so that they cover the
+    frame), and first-bounce rays from their hits in random directions
+    (dead, t_max = 0, where the camera ray missed).  Returns
+    [(label, o, d, t_min, t_max)]."""
+    import torch
+
+    from mcpt_tpu_torch.ops import march_sweep as msw
+    from mcpt_tpu_torch.ops.math import MAX_FLOAT
+    from mcpt_tpu_torch.render.camera import generate_rays
+
+    g = scene.geom
+    pix = torch.arange(0, cam.width * cam.height, 4, device=dev)[:TILE]
+    n = pix.shape[0]
+    r = np.random.default_rng(seed)
+    u = torch.as_tensor(r.uniform(size=n).astype(np.float32), device=dev)
+    v = torch.as_tensor(r.uniform(size=n).astype(np.float32), device=dev)
+    o_c, d_c = generate_rays(cam, pix, u, v)
+    o_c, d_c = o_c.contiguous(), d_c.contiguous()
+    lo = torch.full((n,), 1e-4, device=dev)
+    hi = torch.full((n,), MAX_FLOAT, device=dev)
+    first = msw.march_sweep_plain(o_c, d_c, lo, hi, g.march_min, g.march_max,
+                                  g.march_tris, g.march_prim)
+    o_b = (o_c + torch.clamp(first.t, max=1e8)[:, None] * d_c).contiguous()
+    d_b = torch.as_tensor(r.normal(size=(n, 3)).astype(np.float32), device=dev)
+    d_b = (d_b / d_b.norm(dim=-1, keepdim=True)).contiguous()
+    hi_b = torch.where(first.valid, hi, torch.zeros_like(hi))
+    return [("camera", o_c, d_c, lo, hi), ("bounce", o_b, d_b, lo, hi_b)]
+
+
+def _scene(make_config, dev):
+    from mcpt_tpu_torch.render.camera import make_camera
+    from mcpt_tpu_torch.scene.compile import compile_scene
+
+    cfg = make_config()
+    return compile_scene(cfg, dev), make_camera(cfg.camera, dev)
+
+
+def _march_args(g, o, d, lo, hi):
+    """K2's inputs: the rays in the march wrapper's block order."""
+    from mcpt_tpu_torch.ops.traversal import march_order
+
+    order = march_order(g, o, d, lo, hi)
+    return (o[order].contiguous(), d[order].contiguous(), lo[order], hi[order],
+            g.march_min, g.march_max, g.march_tris, g.march_prim)
+
+
+def phase_kernel_k2(dev):
+    import torch
+
+    from mcpt_tpu_torch.ops import march_sweep as msw
+    from mcpt_tpu_torch.ops.math import MAX_FLOAT
+    from mcpt_tpu_torch.scene.builtin import cornell_mesh_march
+    from mcpt_tpu_torch.scene.geometry import commit_geometry
+
+    scene, cam = _scene(cornell_mesh_march, dev)
+    g = scene.geom
+    sets = [(label, g, *rays) for label, *rays in camera_and_bounce(scene, cam, dev)]
+    # a random soup of 20000 triangles and random rays, every 16th dead
+    soup = random_tris(20000, seed=5)
+    verts = np.stack([soup[:, 0:3], soup[:, 0:3] + soup[:, 3:6],
+                      soup[:, 0:3] + soup[:, 6:9]], axis=1)
+    g_s = commit_geometry(verts, None, None, None, np.zeros(20000), dev,
+                          tri_opaque=soup[:, 9] > 0.5)
+    o_np, d_np = random_rays(TILE, seed=6)
+    hi_s = torch.full((TILE,), MAX_FLOAT, device=dev)
+    hi_s[::16] = 0.0
+    sets.append(("soup", g_s, torch.as_tensor(o_np, device=dev),
+                 torch.as_tensor(d_np, device=dev),
+                 torch.full((TILE,), 1e-4, device=dev), hi_s))
+    max_err = 0.0
+    for label, geom, o, d, lo, hi in sets:
+        args = _march_args(geom, o, d, lo, hi)
+        line = []
+        for any_hit in (False, True):
+            got = msw.march_sweep(*args, any_hit=any_hit)
+            ref = msw.march_sweep_plain(*args, any_hit=any_hit)
+            err, n_hit, n_tie = same_hits(got, ref, args[0], args[1],
+                                          geom.packed_tris, args[2],
+                                          f"K2 {label} any_hit={any_hit}",
+                                          any_hit)
+            max_err = max(max_err, err)
+            line.append(f"{'any' if any_hit else 'closest'} hits {n_hit}"
+                        + ("" if any_hit else f" ties {n_tie}"))
+        say(f"kernel-K2 {label}: {TILE} rays x {geom.n_march_leaves} chunks "
+            f"of {geom.march_leaf} match plain ({', '.join(line)})")
+
+    # time and bound on the main path's bounce rays
+    args = _march_args(g, *sets[1][2:])
+    ms = cuda_ms(lambda: msw.march_sweep(*args), reps=20)
+    plain_ms = cuda_ms(lambda: msw.march_sweep_plain(*args), reps=3, warmup=1)
+    o, d, lo, hi, cmin, cmax, tris, prim = args
+    lm, ls = prim.shape
+    t_final = msw.march_sweep_plain(*args).t
+    ent = msw.chunk_entry(o, d, lo, hi, cmin, cmax)
+    lane_visits = int((ent < t_final[:, None]).sum())
+    r = msw.ray_block()
+    pad = -len(o) % r
+    ent_b = torch.cat([ent, ent.new_full((pad, lm), float("inf"))]
+                      ).view(-1, r, lm).amin(dim=1)
+    cap = torch.cat([torch.where(hi > lo, t_final, torch.zeros_like(t_final)),
+                     t_final.new_zeros(pad)]).view(-1, r).amax(dim=1)
+    block_visits = int((ent_b < cap[:, None]).sum())
+    live = int((hi > lo).sum())
+    # what the function needs: t_min, t_max of every ray, o, d of the live
+    # ones, the chunk boxes, the rows of the chunks some lane must sweep
+    swept = int((ent < t_final[:, None]).any(dim=0).sum())
+    ops = K1_OPS_PER_PAIR * lane_visits * ls + SLAB_OPS * live * lm
+    nbytes = (len(o) * 2 * 4 + live * 6 * 4 + lm * 6 * 4
+              + swept * ls * 13 * 4 + len(o) * HIT_BYTES)
+    bound_ms, bound_by = bound(ops, nbytes)
+    say(f"kernel-K2 bounce: {ms:.3f} ms (plain {plain_ms:.3f} ms), bound "
+        f"{bound_ms:.4f} ms by {bound_by}: {live} live rays x {lm} slab tests "
+        f"+ {lane_visits} lane-chunk sweeps of {ls} (block unions: "
+        f"{block_visits} chunk visits x {r} lanes)")
+    return {
+        "name": "march_sweep", "route": "cuda",
+        "source": "mcpt_tpu_torch/csrc/march_sweep.cu",
+        "replaces": "mcpt_tpu/ops/pallas_march.py:128",
+        "launches": None, "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "shape": f"{len(o)} bounce rays x {lm} chunks of {ls}",
+    }
+
+
+def phase_kernel_k3k4(dev):
+    import torch
+
+    from mcpt_tpu_torch.ops import march_sweep as msw
+    from mcpt_tpu_torch.ops import pair_sweep as psw
+    from mcpt_tpu_torch.ops.traversal import _intersect_pairs, pair_inputs
+    from mcpt_tpu_torch.scene.builtin import cornell_mesh_pairs
+
+    scene, cam = _scene(cornell_mesh_pairs, dev)
+    g = scene.geom
+    lm, ls = g.march_prim.shape
+    k = psw.pair_k()
+    sets = camera_and_bounce(scene, cam, dev)
+    k3_err = k4_err = 0.0
+    for label, o, d, lo, hi in sets:
+        cargs = (o, d, lo, hi, g.march_min, g.march_max, k)
+        slots, over = psw.corridor(*cargs)
+        slots_p, over_p = psw.corridor_plain(*cargs)
+        k3_err = max(k3_err, float((slots - slots_p).abs().max()),
+                     float((over != over_p).sum()))
+        if k3_err != 0.0:
+            raise AssertionError(f"K3 {label}: slots or overflow differ")
+        filled = int((slots < lm).sum())
+        _, _, *pairs = pair_inputs(g, o, d, lo, hi, k)
+        line = []
+        for any_hit in (False, True):
+            got = psw.pair_sweep(*pairs, g.march_tris, g.march_prim, any_hit)
+            ref = psw.pair_sweep_plain(*pairs, g.march_tris, g.march_prim, any_hit)
+            # K4 keeps each pair's nearest (opaque) hit in both modes
+            err, n_hit, _ = same_hits(got, ref, pairs[0], pairs[1],
+                                      g.packed_tris, pairs[2],
+                                      f"K4 {label} any_hit={any_hit}")
+            k4_err = max(k4_err, err)
+            # the whole pair route against the plain per-lane march
+            got_r = _intersect_pairs(g, o, d, lo, hi, any_hit)
+            ref_r = msw.march_sweep_plain(o, d, lo, hi, g.march_min,
+                                          g.march_max, g.march_tris,
+                                          g.march_prim, any_hit)
+            _, n_r, n_tie = same_hits(got_r, ref_r, o, d, g.packed_tris, lo,
+                                      f"pairs route {label} any_hit={any_hit}",
+                                      any_hit)
+            line.append(f"{'any' if any_hit else 'closest'}: K4 pair hits "
+                        f"{n_hit}, route hits {n_r}"
+                        + ("" if any_hit else f" ties {n_tie}"))
+        say(f"kernel-K3K4 {label}: {len(o)} rays x {lm} chunks, K={k}: K3 "
+            f"slots equal ({filled} filled, {int(over.sum())} overflow); "
+            + "; ".join(line))
+
+    # time and bound on the main path's bounce rays
+    o, d, lo, hi = sets[1][1:]
+    cargs = (o, d, lo, hi, g.march_min, g.march_max, k)
+    k3_ms = cuda_ms(lambda: psw.corridor(*cargs), reps=20)
+    k3_plain = cuda_ms(lambda: psw.corridor_plain(*cargs), reps=3, warmup=1)
+    n = len(o)
+    live = int((hi > lo).sum())  # a dead ray's corridor is empty untested
+    k3_bound, k3_by = bound(SLAB_OPS * live * lm,
+                            n * 2 * 4 + live * 6 * 4 + lm * 6 * 4
+                            + n * k * 4 + n)
+    _, _, *pairs = pair_inputs(g, o, d, lo, hi, k)
+    pargs = (*pairs, g.march_tris, g.march_prim)
+    k4_ms = cuda_ms(lambda: psw.pair_sweep(*pargs), reps=20)
+    k4_plain = cuda_ms(lambda: psw.pair_sweep_plain(*pargs), reps=3, warmup=1)
+    m = len(pairs[0])
+    live_c = pairs[4][pairs[4] < lm]
+    live_pairs = len(live_c)
+    # a dead pair needs only its chunk id and t_max (its output t); a live
+    # one its ray and t_min too, and the rows of the chunks live pairs name
+    k4_bytes = (m * 2 * 4 + live_pairs * 7 * 4
+                + int(torch.unique(live_c).numel()) * ls * 13 * 4
+                + m * HIT_BYTES)
+    k4_bound, k4_by = bound(K1_OPS_PER_PAIR * live_pairs * ls, k4_bytes)
+    say(f"kernel-K3 bounce: {k3_ms:.3f} ms (plain {k3_plain:.3f} ms), bound "
+        f"{k3_bound:.4f} ms by {k3_by} ({live} live of {n} rays x {lm} "
+        f"slab tests)")
+    say(f"kernel-K4 bounce: {k4_ms:.3f} ms (plain {k4_plain:.3f} ms), bound "
+        f"{k4_bound:.4f} ms by {k4_by} ({live_pairs} live of {m} pairs x "
+        f"{ls} triangles)")
+    common = {"route": "cuda", "source": "mcpt_tpu_torch/csrc/pair_sweep.cu",
+              "launches": None, "library_ms": None}
+    return (
+        dict(common, name="corridor", replaces="mcpt_tpu/ops/pallas_pairs.py:227",
+             max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by,
+             shape=f"{n} bounce rays x {lm} chunks, K={k}"),
+        dict(common, name="pair_sweep", replaces="mcpt_tpu/ops/pallas_pairs.py:84",
+             max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bound, bound_by=k4_by,
+             shape=f"{live_pairs} live of {m} pairs x {ls} triangles"),
+    )
+
+
+def phase_render_route(dev, smi, label, make_config, route, kernels,
+                       against_cpu=True):
+    """Renderer.render of a mesh scene above DENSE_MAX_PRIMS at full width
+    after a warm-up frame; the route's kernels must have launched.
+    Returns the kernel counts and the frame's wall."""
+    from mcpt_tpu_torch.ops.traversal import resolved_strategy
+    from mcpt_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(make_config(), device=dev)
+    g = r.scene.geom
+    if resolved_strategy(g) != route:
+        raise AssertionError(f"{label}: route {resolved_strategy(g)}, "
+                             f"expected {route}")
+    r.render(spp=SPP, tile=TILE, spp_chunk=SPP_CHUNK)  # warm-up frame
+    img, wall, counts = _render_timed(r, SPP, frame_base=1)
+    _check_image(img, label)
+    missing = [k for k in kernels if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: {missing} not launched ({counts})")
+    rays = RES * RES * SPP * (1 + 2 * AVG_BOUNCES)
+    say(f"{label}: {int(g.opaque.sum())} triangles, {g.n_march_leaves} "
+        f"chunks of {g.march_leaf}, route {route}; {RES}x{RES} {SPP}spp "
+        f"d{DEPTH} wall {wall:.3f} s, {rays / wall / 1e6:.2f} Mrays/s on "
+        f"{smi}; launches K2 {counts['K2']} ({counts['K2_any']} any-hit), "
+        f"K3 {counts['K3']}, K4 {counts['K4']}, K1 {counts['K1']}; mean "
+        f"{np.round(img.mean(axis=(0, 1)), 4).tolist()}")
+    if against_cpu:
+        card_vs_cpu(make_config, dev, label)
+    return counts, wall
+
+
+def phase_pairs_by_march(dev, smi, pairs_wall):
+    """The pairs scene forced down the block march (MCPT_TRAVERSAL=march),
+    timed as render-pairs was: the evidence on this card for the auto
+    rule, which sends scenes of chunks under 256 prims to the pair route."""
+    from mcpt_tpu_torch.scene.builtin import cornell_mesh_pairs
+
+    os.environ["MCPT_TRAVERSAL"] = "march"
+    try:
+        counts, wall = phase_render_route(
+            dev, smi, "pairs-by-march", cornell_mesh_pairs, "march", ("K2",),
+            against_cpu=False)
+    finally:
+        del os.environ["MCPT_TRAVERSAL"]
+    if counts["K3"] or counts["K4"]:
+        raise AssertionError(f"pairs-by-march: K3/K4 launched ({counts})")
+    faster = "pairs" if pairs_wall < wall else "march"
+    say(f"pairs-by-march: the pairs scene's frame takes {pairs_wall:.3f} s "
+        f"by the pair route and {wall:.3f} s by the block march on {smi}: "
+        f"the {faster} route is faster here")
 
 
 def main():
@@ -357,10 +712,31 @@ def main():
     k1["launches"] = phase_render_cornell(dev, smi)
     _phase[0] = "render-mesh"
     phase_render_mesh(dev, smi)
+    _phase[0] = "kernel-K2"
+    k2 = phase_kernel_k2(dev)
+    _phase[0] = "kernel-K3K4"
+    k3, k4 = phase_kernel_k3k4(dev)
+
+    from mcpt_tpu_torch.scene.builtin import cornell_mesh_march, cornell_mesh_pairs
+
+    _phase[0] = "render-march"
+    c_m, _ = phase_render_route(dev, smi, "render-march", cornell_mesh_march,
+                                "march", ("K2",))
+    _phase[0] = "render-pairs"
+    c_p, pairs_wall = phase_render_route(dev, smi, "render-pairs",
+                                         cornell_mesh_pairs, "pairs",
+                                         ("K3", "K4"))
+    _phase[0] = "pairs-by-march"
+    phase_pairs_by_march(dev, smi, pairs_wall)
+    k2["launches"] = c_m["K2"] + c_p["K2"]
+    k2["launches_by_path"] = {"render-march": c_m["K2"],
+                              "render-pairs": c_p["K2"]}
+    k3["launches"] = c_p["K3"]
+    k4["launches"] = c_p["K4"]
 
     signal.alarm(0)
     say(f"total: {time.perf_counter() - t_start:.1f} s")
-    say(json.dumps({"kernels": [k1]}))
+    say(json.dumps({"kernels": [k1, k2, k3, k4]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -3,9 +3,10 @@
 Same layer map as `mcpt_tpu` (ops/, models/, scene/, integrators/,
 render/), written as plain functions on torch tensors with an explicit
 `device` argument.  Entry points run on "cuda" unless the caller passes
-device="cpu".  The dense ray x triangle sweep is a CUDA kernel written
-by hand (csrc/dense_sweep.cu, built by `mcpt_tpu_torch.build`); on CPU
-tensors its plain PyTorch version runs instead.
+device="cpu".  The ray traversal kernels are CUDA written by hand
+(csrc/: the dense sweep, the block march, the corridor and the pair
+sweep, built by `mcpt_tpu_torch.build`); on CPU tensors their plain
+PyTorch versions run instead.
 
 The package imports neither JAX nor `mcpt_tpu`: the JAX package is the
 reference the tests hold this one against, not a dependency.

@@ -42,6 +42,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     "mcpt_dense_sweep": [_P, _P, _P, _P, _P, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P],
+    "mcpt_march_sweep": [_P] * 8 + [_I] * 5 + [_P] * 7,
+    "mcpt_corridor": [_P] * 6 + [_I] * 3 + [_P] * 3,
+    "mcpt_pair_sweep": [_P] * 7 + [_I] * 5 + [_P] * 7,
 }
 
 

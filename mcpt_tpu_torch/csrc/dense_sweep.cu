@@ -26,19 +26,22 @@
 // lanes get t_max = 0) skip the arithmetic; a block whose lanes are all
 // dead skips the sweep.
 //
-// Arithmetic: built with --fmad=false and without fast math, so every
-// multiply and add rounds on its own, in the same order as the plain
-// PyTorch version (ops/dense_sweep.py::dense_sweep_plain) — the two agree
-// bit for bit.
+// Arithmetic (ray_tests.cuh): built with --fmad=false and without fast
+// math, so every multiply and add rounds on its own, in the same order as
+// the plain PyTorch version (ops/dense_sweep.py::dense_sweep_plain) — the
+// two agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ray_tests.cuh"
+
 namespace {
+
+using mcpt::ROW;
 
 constexpr int THREADS = 256;  // rays per block
 constexpr int TILE = 256;     // triangles staged per shared-memory tile
-constexpr int ROW = 12;       // floats per packed triangle
 
 __global__ void __launch_bounds__(THREADS)
 dense_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
@@ -54,15 +57,11 @@ dense_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const int ray = blockIdx.x * THREADS + threadIdx.x;
   const bool in_range = ray < n;
 
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  mcpt::Ray r{0.f, 0.f, 0.f, 0.f, 0.f, 1.f};
   float tmin = 0.f, t_best = 0.f;
   if (in_range) {
-    ox = o[3 * ray + 0];
-    oy = o[3 * ray + 1];
-    oz = o[3 * ray + 2];
-    dx = d[3 * ray + 0];
-    dy = d[3 * ray + 1];
-    dz = d[3 * ray + 2];
+    r = mcpt::Ray{o[3 * ray], o[3 * ray + 1], o[3 * ray + 2],
+                  d[3 * ray], d[3 * ray + 1], d[3 * ray + 2]};
     tmin = t_min[ray];
     t_best = t_max[ray];
   }
@@ -84,35 +83,14 @@ dense_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
       for (int k = 0; k < count; ++k) {
         const float* tri = &tile[k * ROW];
         if (any_hit && !(tri[9] > 0.5f)) continue;
-        const float p0x = tri[0], p0y = tri[1], p0z = tri[2];
-        const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-        const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
-
-        const float pvx = dy * e2z - dz * e2y;
-        const float pvy = dz * e2x - dx * e2z;
-        const float pvz = dx * e2y - dy * e2x;
-        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-        const float det_abs = fabsf(det);
-        const float det_inv = 1.0f / (det_abs < 1e-20f ? 1e-20f : det);
-        const float tvx = ox - p0x;
-        const float tvy = oy - p0y;
-        const float tvz = oz - p0z;
-        const float v = (tvx * pvx + tvy * pvy + tvz * pvz) * det_inv;
-        const float qvx = tvy * e1z - tvz * e1y;
-        const float qvy = tvz * e1x - tvx * e1z;
-        const float qvz = tvx * e1y - tvy * e1x;
-        const float w = (dx * qvx + dy * qvy + dz * qvz) * det_inv;
-        const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * det_inv;
-
-        const bool hit = (v >= 0.f) && (v <= 1.f) && (w >= 0.f) &&
-                         (v + w <= 1.f) && (t >= tmin) && (t < t_best) &&
-                         (det_abs > 1e-20f);
-        if (hit) {
+        float t, v, w;
+        bool back;
+        if (mcpt::moller_trumbore(r, tri, tmin, t_best, t, v, w, back)) {
           t_best = t;
           prim_best = base + k;
           v_best = v;
           w_best = w;
-          in_best = det_inv < 0.f;
+          in_best = back;
           valid = true;
         }
       }

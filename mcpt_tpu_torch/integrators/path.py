@@ -250,11 +250,14 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
         alive = alive | fresh
         work_k = work_k + fresh.to(torch.int32)
 
-        # --- trace (dead lanes get t_max = 0: the sweep skips them)
+        # --- trace (dead lanes get t_max = 0: the traversal skips them;
+        # on the march route fresh camera rays and bounce continuations
+        # sort into separate blocks by their class bit)
         ghit = scene_closest(
             scene, o, d,
             t_max=torch.where(alive, torch.full_like(pdf_mis, MAX_FLOAT),
                               torch.zeros_like(pdf_mis)),
+            sort_bias=(~fresh).int(),
         )
         hit = interpolate_hit(scene, ghit, o, d)
         vert = vert + 1

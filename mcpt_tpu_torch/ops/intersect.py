@@ -1,5 +1,5 @@
-"""Möller–Trumbore ray/triangle test (counterpart of
-mcpt_tpu/ops/intersect.py:20-42).
+"""Möller–Trumbore ray/triangle test and the AABB slab test
+(counterpart of mcpt_tpu/ops/intersect.py:20-42, 107-123).
 
 Triangles are (p0, e1, e2) with e1 = p1 - p0, e2 = p2 - p0.  `det_inv < 0`
 means a back-face hit; (v, w) weight vertices 1 and 2.  Dots are written
@@ -40,3 +40,22 @@ def intersect_triangle(o, d, p0, e1, e2, t_min, t_max):
         & (t >= t_min) & (t <= t_max) & (det.abs() > 1e-20)
     )
     return hit, t, v, w, det_inv
+
+
+def intersect_aabb(o, d_rcp, box_min, box_max, t_min, t_max):
+    """Slab test handling negative directions (csrt aabb.cpp:29-47).
+    [..., 3] points and boxes, [...] bounds; returns (hit, t_enter)."""
+    lo = (box_min - o) * d_rcp
+    hi = (box_max - o) * d_rcp
+    t_near = torch.minimum(lo, hi)
+    t_far = torch.maximum(lo, hi)
+    t_enter = torch.maximum(t_near.amax(dim=-1), t_min)
+    t_exit = torch.minimum(t_far.amin(dim=-1), t_max)
+    return t_enter <= t_exit, t_enter
+
+
+def safe_rcp(d):
+    """Reciprocal direction with |d| < 1e-12 pushed to +-1e-12, so the slab
+    test never multiplies inf by 0."""
+    tiny = torch.where(d < 0, torch.full_like(d, -1e-12), torch.full_like(d, 1e-12))
+    return 1.0 / torch.where(d.abs() < 1e-12, tiny, d)

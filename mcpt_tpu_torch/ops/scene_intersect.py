@@ -12,8 +12,10 @@ from mcpt_tpu_torch.ops.dense_sweep import GeomHit
 from mcpt_tpu_torch.ops.traversal import intersect_any, intersect_closest
 
 
-def scene_closest(scene, o, d, t_min=None, t_max=None) -> GeomHit:
-    return intersect_closest(scene.geom, o, d, t_min=t_min, t_max=t_max)
+def scene_closest(scene, o, d, t_min=None, t_max=None,
+                  sort_bias=None) -> GeomHit:
+    return intersect_closest(scene.geom, o, d, t_min=t_min, t_max=t_max,
+                             sort_bias=sort_bias)
 
 
 def scene_any(scene, o, d, t_min=None, t_max=None) -> torch.Tensor:

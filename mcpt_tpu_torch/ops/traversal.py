@@ -1,24 +1,43 @@
 """Closest-hit and any-hit queries (counterpart of
-mcpt_tpu/ops/traversal.py:1096-1150, for scenes of at most
-DENSE_MAX_PRIMS triangles).
+mcpt_tpu/ops/traversal.py: ray sort keys :359-451, routing :660-683, the
+march wrapper :781-905, the pair traversal :928-1069 and the dispatch
+:1096-1150).
 
-Both go to the dense sweep (ops/dense_sweep.py): kernel K1 for CUDA
-tensors, its plain version for CPU tensors.  Larger scenes take the
-march and pair traversals, which this port does not have yet (ROADMAP
-items 9-11).
+Scenes of at most DENSE_MAX_PRIMS padded prims go to the dense sweep
+(kernel K1).  Larger scenes take the route `resolved_strategy` picks:
+
+* ``march`` — rays sorted by coherence keys, then the block march
+  (kernel K2) over the SAH chunk pack, then the inverse permutation;
+* ``pairs`` — each ray's first K corridor chunks (kernel K3), the
+  (ray, chunk) pairs sorted by chunk and swept (kernel K4), a K-way
+  per-ray min, and the block march for rays whose corridor overflows.
+
+Every kernel runs for CUDA tensors and its plain version for CPU
+tensors; nothing falls back from one to the other.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
+from mcpt_tpu_torch.ops import march_sweep as msw
+from mcpt_tpu_torch.ops import pair_sweep as psw
 from mcpt_tpu_torch.ops.dense_sweep import GeomHit, dense_sweep
 from mcpt_tpu_torch.ops.math import EPSILON_DISTANCE, MAX_FLOAT
 
-__all__ = ["DENSE_MAX_PRIMS", "GeomHit", "intersect_closest", "intersect_any"]
+__all__ = [
+    "DENSE_MAX_PRIMS", "GeomHit", "intersect_closest", "intersect_any",
+    "resolved_strategy",
+]
 
 #: scenes up to this many padded primitives use the dense sweep
 DENSE_MAX_PRIMS = 16384
+
+#: MCPT_TRAVERSAL values; "packet" is the reference's block-stack BVH
+#: walk, which this port does not have (ROADMAP item 22)
+STRATEGIES = ("auto", "march", "pairs", "packet")
 
 
 def _bounds(o, t_min, t_max):
@@ -32,23 +51,214 @@ def _bounds(o, t_min, t_max):
     return full(t_min, EPSILON_DISTANCE), full(t_max, MAX_FLOAT)
 
 
-def _sweep(geom, o, d, t_min, t_max, any_hit):
-    p = geom.packed_tris.shape[0]
-    if p > DENSE_MAX_PRIMS:
-        raise NotImplementedError(
-            f"{p} primitives > DENSE_MAX_PRIMS={DENSE_MAX_PRIMS}: the march "
-            "and pair traversals are ROADMAP items 9-11"
-        )
+# ---------------------------------------------------------------- ray order
+
+
+def _morton10(x):
+    """Interleave the low 10 bits of int64 lanes 3 apart (the reference's
+    uint32 arithmetic: every intermediate is masked below 2^32)."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0xFF0000FF
+    x = (x | (x << 8)) & 0x0F00F00F
+    x = (x | (x << 4)) & 0xC30C30C3
+    x = (x | (x << 2)) & 0x49249249
+    return x
+
+
+def _octant(d):
+    return ((d[..., 0] >= 0).long() * 4 + (d[..., 1] >= 0).long() * 2
+            + (d[..., 2] >= 0).long())
+
+
+def _ray_sort_keys(geom, o, d, mode: str | None = None, coherence=None):
+    """Coherence keys so a march block's rays share chunks; bit-equal to
+    the reference's.  Modes (MCPT_MARCH_SORT): ``octori`` (default:
+    direction octant, then 25 bits of the origin's Morton code inside
+    the scene bounds), ``dirori`` (12-bit direction Morton, then origin
+    Morton) and ``octdir`` (2 bits per direction axis, then origin
+    Morton).  ``coherence``: optional [N] int32 origin chunk id (-1 =
+    unknown); lanes with one get a chunk-major key.  Every key fits in
+    28 bits; the caller ORs the class at bits 28-29 and the dead bit at
+    30.  Returns [N] int32."""
+    if mode is None:
+        mode = os.environ.get("MCPT_MARCH_SORT", "octori")
+    lo, hi = geom.bounds_min, geom.bounds_max
+    span = torch.clamp(hi - lo, min=1e-12)
+    q = torch.clamp((o - lo) / span, 0.0, 1.0)
+    qi = (q * 1023.0).long()
+    morton = ((_morton10(qi[..., 0]) << 2) | (_morton10(qi[..., 1]) << 1)
+              | _morton10(qi[..., 2]))
+    geo_mask = (1 << 28) - 1
+    if mode == "dirori":
+        dq = torch.clamp((d + 1.0) * 0.5, 0.0, 1.0)
+        di = (dq * 15.0).long()  # 4 bits per axis
+        dmorton = ((_morton10(di[..., 0]) << 2) | (_morton10(di[..., 1]) << 1)
+                   | _morton10(di[..., 2]))
+        keys = ((dmorton << 14) | (morton >> 16)) & geo_mask
+    elif mode == "octdir":
+        dq = torch.clamp((d + 1.0) * 0.5, 0.0, 1.0)
+        di = (dq * 3.999).long()  # 2 bits per axis
+        dir6 = (di[..., 0] << 4) | (di[..., 1] << 2) | di[..., 2]
+        keys = ((dir6 << 22) | (morton >> 8)) & geo_mask
+    else:
+        keys = ((_octant(d) << 25) | (morton >> 5)) & geo_mask
+    if coherence is not None:
+        coh = torch.as_tensor(coherence, device=o.device).long()
+        ck = ((torch.clamp(coh, 0, 2047) << 17) | (_octant(d) << 14)
+              | (morton >> 16)) & geo_mask
+        keys = torch.where(coh >= 0, ck, keys)
+    return keys.to(torch.int32)
+
+
+def _unsort(order, hit: GeomHit) -> GeomHit:
+    """Scatter a hit record computed in `order` back to ray order."""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    return GeomHit(*(x[inv] for x in hit))
+
+
+# ---------------------------------------------------------------- routing
+
+
+def _large_strategy() -> str:
+    """Large-scene (> DENSE_MAX_PRIMS) traversal: MCPT_TRAVERSAL, one of
+    STRATEGIES, default 'auto'."""
+    s = os.environ.get("MCPT_TRAVERSAL", "auto")
+    if s not in STRATEGIES:
+        raise ValueError(f"MCPT_TRAVERSAL={s!r}: expected one of {STRATEGIES}")
+    return s
+
+
+def resolved_strategy(geom) -> str:
+    """The traversal a geometry uses ('auto' resolved).  A chunk size
+    below 256 is the commit-time mark of many thin chunks, whose block
+    corridor unions are wide: auto = pairs iff march_leaf < 256."""
+    s = _large_strategy()
+    if s != "auto":
+        return s
+    return "pairs" if geom.march_leaf < 256 else "march"
+
+
+# ---------------------------------------------------------------- march
+
+
+def march_order(geom, o, d, t_min, t_max, sort_bias=None):
+    """The march's ray order: one sort of the coherence keys, with dead
+    lanes (t_max <= t_min) at bit 30 so that they sort last, into blocks
+    that skip the march, and the optional class `sort_bias` (camera 0,
+    bounce 1) at bits 28-29, so that fresh camera rays and bounce rays
+    never share a block.  Returns the [N] permutation."""
+    keys = _ray_sort_keys(geom, o, d) | torch.where(
+        t_max <= t_min, 1 << 30, 0).to(torch.int32)
+    if sort_bias is not None:
+        keys = keys | (sort_bias.to(torch.int32) << 28)
+    return torch.sort(keys, stable=True)[1]
+
+
+def _intersect_march_cuda(geom, o, d, t_min, t_max, any_hit,
+                          sort_bias=None) -> GeomHit:
+    """The block march (kernel K2) over rays in march_order, so that each
+    block of ray_block() rays shares chunks; the hits go back to ray
+    order.  o, d: [N, 3]; t_min, t_max: [N]."""
+    order = march_order(geom, o, d, t_min, t_max, sort_bias)
+    hit = msw.march_sweep(o[order], d[order], t_min[order], t_max[order],
+                          geom.march_min, geom.march_max, geom.march_tris,
+                          geom.march_prim, any_hit=any_hit)
+    return _unsort(order, hit)
+
+
+# ---------------------------------------------------------------- pairs
+
+
+def pair_inputs(geom, o, d, t_min, t_max, k: int):
+    """The pair route's inputs to K4: each ray's first k corridor chunks
+    (kernel K3) as (ray, chunk) pairs, sorted by chunk id in one sort.
+    Pairs of rays whose corridor has more than k chunks are killed
+    (chunk = Lm, t_max = 0), as are empty slots; they sort last.  Returns
+    (overflow [N] bool, order [N*k] — the pair slot ray*k + j at each
+    sorted position — and the sorted pairs' o, d, t_min, t_max, chunk)."""
+    n = o.shape[0]
+    lm = geom.n_march_leaves
+    slots, overflow = psw.corridor(o, d, t_min, t_max, geom.march_min,
+                                   geom.march_max, k)
+    overflow = overflow & (t_max > t_min)
+    pc = torch.where(overflow[:, None] | (slots >= lm),
+                     torch.full_like(slots, lm), slots).reshape(n * k)
+    order = torch.sort(pc, stable=True)[1]
+    ray = order // k
+    pc_s = pc[order]
+    tmax_s = torch.where(pc_s >= lm, torch.zeros_like(t_max[ray]), t_max[ray])
+    return overflow, order, o[ray], d[ray], t_min[ray], tmax_s, pc_s
+
+
+def _intersect_pairs(geom, o, d, t_min, t_max, any_hit) -> GeomHit:
+    """Pair-scheduled traversal: the (ray, chunk) pairs of pair_inputs are
+    swept against their own chunk only (kernel K4); the per-ray winner is
+    a K-way min with the lowest slot winning among equal t.  Rays whose
+    corridor overflows go through the block march instead, as its only
+    live lanes."""
+    n = o.shape[0]
+    k = psw.pair_k()
+    overflow, order, *pairs = pair_inputs(geom, o, d, t_min, t_max, k)
+    hit_p = psw.pair_sweep(*pairs, geom.march_tris, geom.march_prim,
+                           any_hit=any_hit)
+    hit_p = GeomHit(*(x.reshape(n, k) for x in _unsort(order, hit_p)))
+
+    # K-way reduce per ray: each pair tested exactly one chunk
+    inf = torch.full_like(hit_p.t, float("inf"))
+    tm = torch.where(hit_p.valid, hit_p.t, inf).amin(dim=1)
+    slot = torch.arange(k, device=o.device).expand(n, k)
+    kw = torch.where(hit_p.valid & (hit_p.t == tm[:, None]), slot,
+                     torch.full_like(slot, k)).amin(dim=1)
+    valid_r = torch.isfinite(tm)
+
+    def pick(a):
+        x = a.gather(1, kw.clamp(max=k - 1)[:, None])[:, 0]
+        return torch.where(valid_r, x, torch.zeros_like(x))
+
+    t_r = torch.where(valid_r, tm, t_max)
+    # overflow fallback: the block march with only the overflow lanes live
+    fb = _intersect_march_cuda(geom, o, d, t_min,
+                               torch.where(overflow, t_max,
+                                           torch.zeros_like(t_max)), any_hit)
+    take = fb.valid
+    return GeomHit(
+        valid=valid_r | take,
+        t=torch.where(take, fb.t, t_r),
+        prim=torch.where(take, fb.prim, pick(hit_p.prim)),
+        v=torch.where(take, fb.v, pick(hit_p.v)),
+        w=torch.where(take, fb.w, pick(hit_p.w)),
+        inside=torch.where(take, fb.inside, pick(hit_p.inside)),
+    )
+
+
+# ---------------------------------------------------------------- dispatch
+
+
+def _trace(geom, o, d, t_min, t_max, any_hit, sort_bias=None) -> GeomHit:
+    o, d = o.contiguous(), d.contiguous()
     lo, hi = _bounds(o, t_min, t_max)
-    return dense_sweep(o.contiguous(), d.contiguous(), lo, hi,
-                       geom.packed_tris, any_hit=any_hit)
+    if geom.packed_tris.shape[0] <= DENSE_MAX_PRIMS:
+        return dense_sweep(o, d, lo, hi, geom.packed_tris, any_hit=any_hit)
+    strategy = resolved_strategy(geom)
+    if strategy == "packet":
+        raise NotImplementedError(
+            "MCPT_TRAVERSAL=packet: the block-stack BVH traversal is "
+            "ROADMAP item 22"
+        )
+    if strategy == "pairs":
+        return _intersect_pairs(geom, o, d, lo, hi, any_hit)
+    return _intersect_march_cuda(geom, o, d, lo, hi, any_hit,
+                                 sort_bias=sort_bias)
 
 
-def intersect_closest(geom, o, d, t_min=None, t_max=None) -> GeomHit:
-    """Closest hit of every ray in [t_min, t_max); o, d: [N, 3]."""
-    return _sweep(geom, o, d, t_min, t_max, any_hit=False)
+def intersect_closest(geom, o, d, t_min=None, t_max=None,
+                      sort_bias=None) -> GeomHit:
+    """Closest hit of every ray in [t_min, t_max); o, d: [N, 3].
+    `sort_bias`: optional [N] int coherence class (march route only)."""
+    return _trace(geom, o, d, t_min, t_max, False, sort_bias=sort_bias)
 
 
 def intersect_any(geom, o, d, t_min=None, t_max=None) -> torch.Tensor:
     """Occlusion by an opaque triangle; returns [N] bool."""
-    return _sweep(geom, o, d, t_min, t_max, any_hit=True).valid
+    return _trace(geom, o, d, t_min, t_max, True).valid

@@ -3,7 +3,15 @@
 `cornell_box` is the main path's workload: the cornell-class scene that
 bench.py times (512x512, 16 spp, depth 8), here with a red and a green
 wall, two boxes and a rectangular area light.  `uv_sphere_mesh` is the
-dense mesh that fills the dense sweep to its design size.
+dense mesh that fills the dense sweep to its design size.  The two mesh
+scenes go past DENSE_MAX_PRIMS, one down each large-scene route
+(ops/traversal.py::resolved_strategy):
+
+* `cornell_mesh_march` — the box and a 51,200-triangle sphere, a
+  dragon-class scene: 256-triangle SAH chunks, the block march;
+* `cornell_mesh_pairs` — the box and eight 13,122-triangle spheres
+  (104,976 triangles), a classroom-class scene: the chunk size doubles
+  to 128 to stay under 2048 chunks, and thin chunks take the pair route.
 """
 
 from __future__ import annotations
@@ -50,11 +58,13 @@ def uv_sphere_mesh(nu=90, nv=90):
     return MeshData(positions=V, indices=F.astype(np.int32), normals=V.copy())
 
 
-def cornell_box(res=512, spp=16, depth_max=8, depth_rr=5, sphere=False):
+def cornell_box(res=512, spp=16, depth_max=8, depth_rr=5, sphere=False,
+                meshes=()):
     """Cornell box in the port's IR: white floor, ceiling and back wall,
     red left and green right walls, a short and a tall box, and a 0.5 x 0.5
     area light under the ceiling — 36 triangles.  `sphere` adds a diffuse
-    16200-triangle UV-sphere mesh on the short box."""
+    16200-triangle UV-sphere mesh on the short box; `meshes` adds white
+    diffuse meshes, as (MeshData, to_world) pairs."""
     tex = TextureBuilder()
     colors = {
         "white": [0.725, 0.71, 0.68],
@@ -93,6 +103,9 @@ def cornell_box(res=512, spp=16, depth_max=8, depth_rr=5, sphere=False):
             shape="mesh", mesh=uv_sphere_mesh(), id_bsdf=row["white"],
             to_world=_xform(scale=(0.3, 0.3, 0.3), t=(0.35, 0.9, 0.3)),
         ))
+    for mesh, to_world in meshes:
+        instances.append(InstanceInfo(shape="mesh", mesh=mesh,
+                                      id_bsdf=row["white"], to_world=to_world))
     cam = CameraInfo(width=res, height=res, spp=spp, fov_x=39.0,
                      eye=np.array([0, 1, 4.5], np.float32),
                      look_at=np.array([0, 1, 0], np.float32))
@@ -101,3 +114,24 @@ def cornell_box(res=512, spp=16, depth_max=8, depth_rr=5, sphere=False):
         integrator=IntegratorInfo(depth_max=depth_max, depth_rr=depth_rr),
         textures=tex, bsdfs=bsdfs, instances=instances,
     )
+
+
+def cornell_mesh_march(res=512, spp=16, depth_max=8, depth_rr=5):
+    """The Cornell box with a 51,200-triangle UV sphere (160 x 160) on the
+    short box: 51,236 triangles, 256-triangle SAH chunks, route march."""
+    sphere = (uv_sphere_mesh(160, 160),
+              _xform(scale=(0.3, 0.3, 0.3), t=(0.35, 0.9, 0.3)))
+    return cornell_box(res, spp, depth_max, depth_rr, meshes=[sphere])
+
+
+def cornell_mesh_pairs(res=512, spp=16, depth_max=8, depth_rr=5):
+    """The Cornell box with eight 13,122-triangle UV spheres (81 x 81) in
+    a ring above the boxes: 105,012 triangles, 128-triangle SAH chunks,
+    route pairs."""
+    mesh = uv_sphere_mesh(81, 81)
+    ring = []
+    for i in range(8):
+        a = 2.0 * np.pi * i / 8
+        ring.append((mesh, _xform(scale=(0.17, 0.17, 0.17),
+                                  t=(0.6 * np.cos(a), 1.45, 0.6 * np.sin(a)))))
+    return cornell_box(res, spp, depth_max, depth_rr, meshes=ring)

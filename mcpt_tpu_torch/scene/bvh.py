@@ -3,9 +3,11 @@
 The reference sorts primitives by the 30-bit Morton code of their AABB
 centroids (csrt bvh_builder.cpp:39-48,125) and pads them to
 `leaf_size * 2^ceil(log2(n_leaves))` slots for its implicit BVH.  The
-dense sweep needs no tree, but the port keeps the same order and padding
-so that prim k here is prim k in the reference.  The node boxes wait for
-the traversals that use them (ROADMAP items 9-11).
+port's traversals walk no tree (the dense sweep, and the march over SAH
+chunks, scene/geometry.py), but the port keeps the same order and padding
+so that prim k here is prim k in the reference.  Of the node boxes only
+the root's is read (the ray sort keys' scene bounds), and geometry.py
+keeps it as bounds_min / bounds_max.
 """
 
 from __future__ import annotations

@@ -21,7 +21,6 @@ import torch
 
 from mcpt_tpu_torch.models.bsdf import BsdfTables, build_bsdf_tables
 from mcpt_tpu_torch.models.texture import TextureTables
-from mcpt_tpu_torch.ops.traversal import DENSE_MAX_PRIMS
 from mcpt_tpu_torch.scene.geometry import Geometry, commit_geometry
 from mcpt_tpu_torch.scene.ir import BsdfType, RendererConfig
 from mcpt_tpu_torch.scene.shapes import instance_triangles, triangle_areas
@@ -118,12 +117,6 @@ def compile_scene(config: RendererConfig, device="cuda") -> SceneData:
 
     geom = commit_geometry(tri_pos, tri_nrm, tri_uv, tri_tan, tri_inst,
                            device, tri_opaque=tri_opaque)
-    if geom.packed_tris.shape[0] > DENSE_MAX_PRIMS:
-        raise NotImplementedError(
-            f"{geom.packed_tris.shape[0]} padded primitives > "
-            f"DENSE_MAX_PRIMS={DENSE_MAX_PRIMS}: mesh scenes are ROADMAP "
-            "items 9-12"
-        )
 
     # --- instance -> bsdf map (csrt instance.hpp:40-51 binding)
     n_inst = len(config.instances)
@@ -208,10 +201,20 @@ def scene_from_arrays(arrays: dict, device="cuda") -> SceneData:
     "map_inst_bsdf", ...) — how the tests carry the reference's compiled
     scene across.  Keys the port does not use are ignored;
     `geom.packed_tris` may come in the reference's [leaves, leaf, 12]
-    layout.  The static facts follow from the tables: emissive rows have
-    a positive pdf_area, and the present BSDF types are those of the
+    layout, and the geometry fields the reference does not have follow
+    from those it has: march_prim from march_tris' prim-id channel, the
+    scene bounds from the BVH root (geom.node_min[0], geom.node_max[0]).
+    The static facts follow from the tables: emissive rows have a
+    positive pdf_area, and the present BSDF types are those of the
     table's rows."""
     device = torch.device(device)
+    arrays = dict(arrays)
+    if "geom.march_prim" not in arrays:
+        arrays["geom.march_prim"] = np.asarray(
+            arrays["geom.march_tris"])[..., 10].astype(np.int32)
+    for f, node in (("bounds_min", "node_min"), ("bounds_max", "node_max")):
+        if f"geom.{f}" not in arrays:
+            arrays[f"geom.{f}"] = np.asarray(arrays[f"geom.{node}"])[0]
 
     def get(name):
         return torch.as_tensor(np.array(arrays[name]), device=device)

@@ -1,13 +1,17 @@
-"""Device geometry: flat world-space triangle SoA (counterpart of the
-dense fields of mcpt_tpu/scene/geometry.py::commit_geometry, :164-213).
+"""Device geometry: flat world-space triangle SoA and the march pack
+(counterpart of mcpt_tpu/scene/geometry.py::commit_geometry, :164-313).
 
 All instances merge into one Morton-sorted, padded primitive array with a
 per-prim `inst_id` for BSDF binding; padding prims have zero edges and
-are never hit.  The march-chunk fields wait for slice 2 (ROADMAP item 9).
+are never hit.  Scenes above DENSE_MAX_PRIMS traverse the march pack:
+the real prims grouped by a top-down binned-SAH partition into at most
+MCPT_MARCH_MAX_CHUNKS chunks of `march_leaf` prims, each with its AABB.
+The pack is built for every scene, as the reference builds it.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -37,6 +41,29 @@ class Geometry(NamedTuple):
     #: [P, 12] rows (p0.xyz, e1.xyz, e2.xyz, opaque, 0, 0) — the dense
     #: sweep's triangle table (the reference keeps it as [leaves, leaf, 12])
     packed_tris: torch.Tensor
+    #: [Lm, ls, 12] march pack: chunk j's rows of packed_tris, channel 10 =
+    #: the global sorted prim id as f32 (the reference's row), padding
+    #: rows zero
+    march_tris: torch.Tensor
+    #: [Lm, ls] int32 global sorted prim id of each march row (exact at
+    #: any size; channel 10 is exact only below 2^24), padding rows 0
+    march_prim: torch.Tensor
+    march_min: torch.Tensor  # [Lm, 3] chunk AABBs (empty chunk: 3e37)
+    march_max: torch.Tensor
+    #: [P] int32 chunk of each sorted prim (padding prims -> 0)
+    march_chunk_of_prim: torch.Tensor
+    #: [3] scene bounds: the union of the real prims' AABBs (the
+    #: reference's BVH root, node_min[0] / node_max[0])
+    bounds_min: torch.Tensor
+    bounds_max: torch.Tensor
+
+    @property
+    def n_march_leaves(self) -> int:
+        return self.march_tris.shape[0]
+
+    @property
+    def march_leaf(self) -> int:
+        return self.march_tris.shape[1]
 
 
 def _tangent_frames(normals: np.ndarray):
@@ -55,6 +82,112 @@ def _tangent_frames(normals: np.ndarray):
 
 #: the reference's BVH leaf size, which sets the padding of the prim array
 LEAF_SIZE = 4
+
+
+def _sah_chunks_py(cent, tmin, tmax, leaf, nbins=16):
+    """Top-down binned-SAH partition of prims into chunks of <= `leaf`
+    (mcpt_tpu/scene/geometry.py::_sah_chunks_py, copied verbatim so the
+    chunks and their DFS order are the reference's).
+
+    The march traversal's cost per ray is (chunks entered) x (sweep of
+    `leaf` tris), so the split objective is the classic surface-area
+    heuristic: min SA(L)*|L| + SA(R)*|R| over 16 centroid bins on the
+    longest axis.  Returns a list of int64 index arrays into the input
+    prim order.
+    """
+    out = []
+    stack = [np.arange(cent.shape[0], dtype=np.int64)]
+    while stack:
+        ix = stack.pop()
+        if ix.size <= leaf:
+            out.append(ix)
+            continue
+        c = cent[ix]
+        lo, hi = c.min(axis=0), c.max(axis=0)
+        ax = int(np.argmax(hi - lo))
+        if hi[ax] - lo[ax] < 1e-12:  # all centroids coincide
+            stack += [ix[: ix.size // 2], ix[ix.size // 2 :]]
+            continue
+        b = np.minimum(
+            ((c[:, ax] - lo[ax]) / (hi[ax] - lo[ax]) * nbins).astype(
+                np.int32
+            ),
+            nbins - 1,
+        )
+        cnt = np.bincount(b, minlength=nbins)
+        bmin = np.full((nbins, 3), np.inf, np.float32)
+        bmax = np.full((nbins, 3), -np.inf, np.float32)
+        for k in range(3):
+            np.minimum.at(bmin[:, k], b, tmin[ix, k])
+            np.maximum.at(bmax[:, k], b, tmax[ix, k])
+        cl = np.cumsum(cnt)[:-1]
+        cr = ix.size - cl
+        pmin = np.minimum.accumulate(bmin, 0)
+        pmax = np.maximum.accumulate(bmax, 0)
+        smin = np.minimum.accumulate(bmin[::-1], 0)[::-1]
+        smax = np.maximum.accumulate(bmax[::-1], 0)[::-1]
+
+        def sa(mn, mx):
+            d = np.clip(mx - mn, 0, None)
+            return 2 * (
+                d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 0] * d[:, 2]
+            )
+
+        cost = np.where(
+            (cl > 0) & (cr > 0),
+            sa(pmin, pmax)[:-1] * cl + sa(smin, smax)[1:] * cr,
+            np.inf,
+        )
+        i = int(np.argmin(cost))
+        if not np.isfinite(cost[i]):
+            stack += [ix[: ix.size // 2], ix[ix.size // 2 :]]
+            continue
+        stack += [ix[b <= i], ix[b > i]]
+    return out
+
+
+def march_pack(pos_s: np.ndarray, packed: np.ndarray, p: int):
+    """The march pack of the first `p` (real) sorted prims, as the
+    reference's commit_geometry builds it (:252-280).  pos_s: [P, 3, 3]
+    sorted positions; packed: [P, 12] rows.  Returns (march_tris,
+    march_prim, march_min, march_max, chunk_of_prim) as numpy arrays.
+
+    The chunk size starts at 256 up to 65536 real prims, else 64
+    (MCPT_MARCH_LEAF overrides), and doubles while the SAH partition
+    has more than MCPT_MARCH_MAX_CHUNKS (2048) chunks."""
+    sv0, sv1, sv2 = pos_s[:p, 0], pos_s[:p, 1], pos_s[:p, 2]
+    s_min = np.minimum(np.minimum(sv0, sv1), sv2)
+    s_max = np.maximum(np.maximum(sv0, sv1), sv2)
+    s_cent = 0.5 * (s_min + s_max)
+    default_leaf = 256 if p <= (1 << 16) else 64
+    leaf = int(os.environ.get("MCPT_MARCH_LEAF", default_leaf))
+    max_chunks = int(os.environ.get("MCPT_MARCH_MAX_CHUNKS", 2048))
+    chunks = _sah_chunks_py(s_cent, s_min, s_max, leaf)
+    while len(chunks) > max_chunks:
+        leaf *= 2
+        chunks = _sah_chunks_py(s_cent, s_min, s_max, leaf)
+    # The reference's commit_geometry takes its chunks from the native
+    # mirror (mcpt_tpu/native/sah.c) wherever it builds: the same chunks,
+    # listed by their offset in the partitioned order — left child first
+    # — where the Python oracle lists them in stack-pop order, right child
+    # first.  The two orders are each other's reverse; the port keeps the
+    # native one, which commit_geometry produces (ROADMAP section 3, R3).
+    chunks.reverse()
+    n_march = len(chunks)
+    march_tris = np.zeros((n_march, leaf, 12), np.float32)
+    march_prim = np.zeros((n_march, leaf), np.int32)
+    march_min = np.full((n_march, 3), 3.0e37, np.float32)  # empty = far point
+    march_max = np.full((n_march, 3), 3.0e37, np.float32)
+    chunk_of_prim = np.zeros(packed.shape[0], np.int32)  # padding prims -> 0
+    for j, ix in enumerate(chunks):
+        rows = packed[ix]
+        rows[:, 10] = ix.astype(np.float32)  # global prim id (exact < 2^24)
+        march_tris[j, : ix.size] = rows
+        march_prim[j, : ix.size] = ix
+        march_min[j] = s_min[ix].min(axis=0)
+        march_max[j] = s_max[ix].max(axis=0)
+        chunk_of_prim[ix] = j
+    return march_tris, march_prim, march_min, march_max, chunk_of_prim
 
 
 def commit_geometry(tri_positions, tri_normals, tri_texcoords, tri_tangents,
@@ -111,6 +244,7 @@ def commit_geometry(tri_positions, tri_normals, tri_texcoords, tri_tangents,
     packed[:, 3:6] = pos_s[:, 1] - pos_s[:, 0]
     packed[:, 6:9] = pos_s[:, 2] - pos_s[:, 0]
     packed[:, 9] = opaque_s.astype(np.float32)
+    m_tris, m_prim, m_min, m_max, chunk_of_prim = march_pack(pos_s, packed, p)
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
@@ -126,4 +260,11 @@ def commit_geometry(tri_positions, tri_normals, tri_texcoords, tri_tangents,
         inst_id=dev(pick(inst)),
         opaque=dev(opaque_s),
         packed_tris=dev(packed),
+        march_tris=dev(m_tris),
+        march_prim=dev(m_prim),
+        march_min=dev(m_min),
+        march_max=dev(m_max),
+        march_chunk_of_prim=dev(chunk_of_prim),
+        bounds_min=dev(pos.min(axis=(0, 1))),
+        bounds_max=dev(pos.max(axis=(0, 1))),
     )

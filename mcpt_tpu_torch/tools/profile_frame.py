@@ -1,15 +1,19 @@
 """Where one frame of the main path spends its time on the card.
 
-    python -m mcpt_tpu_torch.tools.profile_frame [--res 512] [--spp 16] [--sphere]
+    python -m mcpt_tpu_torch.tools.profile_frame [--res 512] [--spp 16]
+        [--scene cornell|sphere|march|pairs]
 
-Renders the built-in Cornell box (scene/builtin.py) once to warm up and
-times one frame with the host clock.  Then it records one tile-chunk of
+Renders a built-in scene (scene/builtin.py: the Cornell box, the box with
+the 16200-triangle sphere, or one of the two mesh scenes past
+DENSE_MAX_PRIMS, one per large-scene route) once to warm up and times one
+frame with the host clock.  Then it records one tile-chunk of
 that frame (the first 64k-pixel tile, the first spp chunk: one
 shade_regen call, 1/8 of a 512x512 16-spp frame) under torch.profiler
 (CPU + CUDA activity) and prints the device's busy time, its idle share
 of the same tile-chunk's unprofiled wall time, the number of device
 activities (kernels, copies, sets) and the kernels with the most device
-time.  The last line is the same as one
+time, and the device time of each of the port's kernels (K1 dense sweep,
+K2 march, K3 corridor, K4 pair sweep).  The last line is the same as one
 JSON object.  Needs a CUDA device.
 """
 
@@ -21,14 +25,17 @@ import sys
 import time
 
 TOP = 8  # kernels listed
+#: the port's kernels by the name of their __global__ function
+KERNELS = {"K1": "dense_sweep_kernel", "K2": "march_kernel",
+           "K3": "corridor_kernel", "K4": "pair_kernel"}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--spp", type=int, default=16)
-    ap.add_argument("--sphere", action="store_true",
-                    help="add the 16200-triangle UV sphere")
+    ap.add_argument("--scene", default="cornell",
+                    choices=("cornell", "sphere", "march", "pairs"))
     args = ap.parse_args(argv)
 
     import torch
@@ -39,9 +46,13 @@ def main(argv=None) -> int:
         print("profile_frame: no CUDA device", file=sys.stderr)
         return 1
     from mcpt_tpu_torch.render.renderer import Renderer
-    from mcpt_tpu_torch.scene.builtin import cornell_box
+    from mcpt_tpu_torch.scene import builtin
 
-    cfg = cornell_box(res=args.res, spp=args.spp, sphere=args.sphere)
+    make = {"cornell": builtin.cornell_box,
+            "sphere": lambda **kw: builtin.cornell_box(sphere=True, **kw),
+            "march": builtin.cornell_mesh_march,
+            "pairs": builtin.cornell_mesh_pairs}[args.scene]
+    cfg = make(res=args.res, spp=args.spp)
     r = Renderer(cfg, device="cuda")
 
     def frame(base):
@@ -87,24 +98,26 @@ def main(argv=None) -> int:
                   key=lambda x: -x[1])
     busy = sum(s for _, s, _ in rows)
     launches = sum(c for _, _, c in rows)
-    k1 = sum(s for k, s, _ in rows if "dense_sweep" in k)
+    kern = {k: sum(s for key, s, _ in rows if fn in key)
+            for k, fn in KERNELS.items()}
     name = torch.cuda.get_device_name(0)
-    print(f"device {name}; frame {args.res}x{args.res} {args.spp}spp "
-          f"d8{' +sphere' if args.sphere else ''}; profiled one "
-          f"tile-chunk of {tile} pixels x {chunk} spp")
+    print(f"device {name}; scene {args.scene}, frame {args.res}x{args.res} "
+          f"{args.spp}spp d8; profiled one tile-chunk of {tile} pixels x "
+          f"{chunk} spp")
     print(f"tile-chunk wall {chunk_wall:.3f} s ({prof_wall:.3f} s profiled); "
           f"device busy {busy:.3f} s, idle share {1 - busy / chunk_wall:.3f}; "
-          f"{launches} device activities; K1 {k1:.4f} s")
+          f"{launches} device activities; "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in kern.items()))
     for key, s, count in rows[:TOP]:
         print(f"  {s * 1e3:9.2f} ms {count:7d}x  {key[:90]}")
     print(json.dumps({
         "device": name, "res": args.res, "spp": args.spp,
-        "sphere": args.sphere, "wall_s": wall,
+        "scene": args.scene, "wall_s": wall,
         "profiled_tile": tile, "profiled_spp": chunk,
         "tile_chunk_wall_s": chunk_wall, "profiled_wall_s": prof_wall,
         "device_busy_s": busy, "idle_share": 1 - busy / chunk_wall,
         "device_activities": launches,
-        "k1_device_s": k1,
+        "kernel_device_s": kern,
         "top": [[k[:90], s, c] for k, s, c in rows[:TOP]],
     }))
     return 0

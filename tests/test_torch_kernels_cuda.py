@@ -1,5 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  Every test here is marked `cuda` and skips without a CUDA device;
+"""The port's CUDA kernels (K1 dense sweep, K2 block march, K3 corridor,
+K4 pair sweep) against their plain PyTorch versions, on the card, and the
+large-scene routes against the plain per-lane march.  Every test here is
+marked `cuda` and skips without a CUDA device;
 the file imports neither JAX nor mcpt_tpu, so it runs on a machine that
 has only PyTorch:
 
@@ -59,3 +61,136 @@ def test_dense_sweep_wrapper_checks_its_inputs():
         ds.dense_sweep(o, o.t().contiguous().t(), lo, lo, tris)
     with pytest.raises(ValueError):
         ds.dense_sweep(o, o, lo, lo, tris[:, :9].contiguous())
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _soup_geometry(n_tris, dev, seed=41):
+    """A random soup with exact duplicates (ties) and 70% opaque prims."""
+    from mcpt_tpu_torch.scene.geometry import commit_geometry
+
+    tris = random_tris(n_tris, seed=seed)
+    tris[n_tris // 2:n_tris // 2 + n_tris // 10] = tris[:n_tris // 10]
+    verts = np.stack([tris[:, 0:3], tris[:, 0:3] + tris[:, 3:6],
+                      tris[:, 0:3] + tris[:, 6:9]], axis=1)
+    return commit_geometry(verts, None, None, None, np.zeros(n_tris), dev,
+                           tri_opaque=tris[:, 9] > 0.5)
+
+
+def _rays(n, dev, seed=42):
+    o, d = random_rays(n, seed=seed)
+    t_max = np.full(n, 3.4e38, np.float32)
+    t_max[1::3] = np.random.default_rng(seed).uniform(1.0, 8.0, n)[1::3]
+    t_max[::9] = 0.0  # dead lanes
+    return (torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev),
+            torch.full((n,), 1e-4, device=dev), torch.as_tensor(t_max, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n_tris,leaf,block", [
+    (3000, "256", "256"),   # a few fat chunks
+    (5000, "16", "96"),     # ~400 thin chunks: several phase-A tiles
+    (60000, "4", "256"),    # >12k chunks: >48 KB of dynamic shared memory
+])
+def test_march_sweep_kernel_matches_plain(monkeypatch, n_tris, leaf, block,
+                                          any_hit):
+    """K2 against the per-lane plain march on rays in the wrapper's block
+    order: valid equal; closest hit: t bit-equal, inside equal, prim equal
+    but on exact-t ties (chip_smoke.same_hits)."""
+    from chip_smoke import same_hits
+    from mcpt_tpu_torch.ops import march_sweep as msw
+    from mcpt_tpu_torch.ops.traversal import march_order
+
+    dev = _cuda()
+    monkeypatch.setenv("MCPT_MARCH_LEAF", leaf)
+    monkeypatch.setenv("MCPT_MARCH_MAX_CHUNKS", "100000")
+    monkeypatch.setenv("MCPT_MARCH_BLOCK", block)
+    g = _soup_geometry(n_tris, dev)
+    o, d, lo, hi = _rays(20000, dev)
+    order = march_order(g, o, d, lo, hi)
+    args = (o[order], d[order], lo[order], hi[order], g.march_min,
+            g.march_max, g.march_tris, g.march_prim)
+    before = msw.launches
+    got = msw.march_sweep(*args, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert msw.launches == before + 1
+    ref = msw.march_sweep_plain(*args, any_hit=any_hit)
+    _, n_hit, _ = same_hits(got, ref, args[0], args[1], g.packed_tris,
+                            args[2], "K2", any_hit)
+    assert n_hit > 0
+    assert not bool(got.valid[hi[order] <= lo[order]].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 8])
+def test_corridor_kernel_equals_plain(monkeypatch, k):
+    from mcpt_tpu_torch.ops import pair_sweep as psw
+
+    dev = _cuda()
+    monkeypatch.setenv("MCPT_MARCH_LEAF", "16")
+    g = _soup_geometry(6000, dev)
+    o, d, lo, hi = _rays(20000, dev)
+    args = (o, d, lo, hi, g.march_min, g.march_max, k)
+    before = psw.corridor_launches
+    slots, over = psw.corridor(*args)
+    assert psw.corridor_launches == before + 1
+    slots_p, over_p = psw.corridor_plain(*args)
+    assert torch.equal(slots, slots_p)
+    assert torch.equal(over, over_p)
+    assert bool(over.any()) and bool((slots < g.n_march_leaves).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_pair_sweep_kernel_bit_equal_to_plain(monkeypatch, shuffle, any_hit):
+    """K4 repeats its plain version op for op: every output bit-equal, in
+    any-hit mode too; unsorted pairs give the same answer, only slower."""
+    from mcpt_tpu_torch.ops import pair_sweep as psw
+    from mcpt_tpu_torch.ops.traversal import pair_inputs
+
+    dev = _cuda()
+    monkeypatch.setenv("MCPT_MARCH_LEAF", "32")
+    g = _soup_geometry(6000, dev)
+    o, d, lo, hi = _rays(20000, dev)
+    _, _, *pairs = pair_inputs(g, o, d, lo, hi, 8)
+    if shuffle:
+        perm = torch.randperm(len(pairs[0]), device=dev,
+                              generator=torch.Generator(dev).manual_seed(0))
+        pairs = [x[perm].contiguous() for x in pairs]
+    before = psw.pair_launches
+    got = psw.pair_sweep(*pairs, g.march_tris, g.march_prim, any_hit)
+    assert psw.pair_launches == before + 1
+    ref = psw.pair_sweep_plain(*pairs, g.march_tris, g.march_prim, any_hit)
+    assert bool(ref.valid.any())
+    for name in ("valid", "inside", "prim", "t", "v", "w"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["march", "pairs"])
+@pytest.mark.parametrize("k", ["2", "8"])
+def test_large_scene_routes_match_plain_march(monkeypatch, route, k):
+    """The whole march and pair routes on the card against the per-lane
+    plain march (the oracle of both), with overflow forced at K=2."""
+    from chip_smoke import same_hits
+    from mcpt_tpu_torch.ops import march_sweep as msw
+    from mcpt_tpu_torch.ops.traversal import intersect_any, intersect_closest
+
+    dev = _cuda()
+    monkeypatch.setenv("MCPT_MARCH_LEAF", "64")
+    monkeypatch.setenv("MCPT_TRAVERSAL", route)
+    monkeypatch.setenv("MCPT_PAIR_K", k)
+    g = _soup_geometry(20000, dev)
+    o, d, lo, hi = _rays(30000, dev)
+    plain = (o, d, lo, hi, g.march_min, g.march_max, g.march_tris, g.march_prim)
+    got = intersect_closest(g, o, d, lo, hi)
+    same_hits(got, msw.march_sweep_plain(*plain), o, d, g.packed_tris, lo,
+              f"{route} closest")
+    occ = intersect_any(g, o, d, lo, hi)
+    assert torch.equal(occ, msw.march_sweep_plain(*plain, any_hit=True).valid)

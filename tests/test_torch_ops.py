@@ -132,3 +132,31 @@ def test_intersect_triangle_matches():
         g, r_ = g.numpy(), np.asarray(r_)
         np.testing.assert_allclose(g[good], r_[good], rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(g[m], r_[m], rtol=1e-3, atol=1e-3)
+
+
+def test_safe_rcp_and_intersect_aabb_match():
+    """The slab test bit for bit: a subtraction and a multiplication per
+    slab, min/max and compares — no multiply-add for XLA to contract."""
+    d = _unit(N, 20)
+    d[:64, 0] = 0.0
+    d[64:128, 1] = -1e-13  # below the 1e-12 guard, negative
+    got_r = tint.safe_rcp(T(d))
+    ref_r = jint.safe_rcp(d)
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(ref_r))
+    o = _rand((N, 3), 21, -3, 3)
+    lo = _rand((N, 3), 22, -2, 0)
+    hi = lo + _rand((N, 3), 23, 0, 2)
+    lo[:32] = 3e37  # an empty chunk parked far away
+    hi[:32] = 3e37
+    aim = 0.5 * (lo + hi)[N // 2:] - o[N // 2:]  # half the rays at their box
+    d[N // 2:] = aim / np.linalg.norm(aim, axis=-1, keepdims=True)
+    got_r = tint.safe_rcp(T(d))
+    ref_r = jint.safe_rcp(d)
+    t_min = np.full(N, 1e-4, np.float32)
+    t_max = _rand((N,), 24, 0.5, 9)
+    hit, t_enter = tint.intersect_aabb(T(o), got_r, T(lo), T(hi), T(t_min),
+                                       T(t_max))
+    ref_hit, ref_t = jint.intersect_aabb(o, ref_r, lo, hi, t_min, t_max)
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(ref_hit))
+    np.testing.assert_array_equal(t_enter.numpy(), np.asarray(ref_t))
+    assert N // 4 < int(hit.sum()) < N

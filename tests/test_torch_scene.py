@@ -27,6 +27,7 @@ from mcpt_tpu.render.camera import make_camera as jax_make_camera
 from mcpt_tpu.scene.compile import compile_scene as jax_compile_scene
 from mcpt_tpu_torch.models.texture import TextureBuilder as TorchTextureBuilder
 from mcpt_tpu_torch.render.camera import generate_rays, make_camera
+from mcpt_tpu_torch.render.renderer import Renderer
 from mcpt_tpu_torch.scene.builtin import cornell_box, uv_sphere_mesh
 from mcpt_tpu_torch.scene.compile import compile_scene, scene_from_arrays
 from tests.test_integrator import make_box_scene
@@ -71,6 +72,20 @@ def jax_scene_arrays(scene) -> dict:
     }
 
 
+def reference_leaf(ref: dict, key: str) -> np.ndarray:
+    """The reference SceneData's value for one of the port's leaves: the
+    same field, or for the geometry fields the reference does not keep,
+    what it holds them in (march_prim in march_tris' channel 10, the scene
+    bounds as the BVH root)."""
+    derived = {
+        "geom.packed_tris": lambda: ref[key].reshape(-1, 12),
+        "geom.march_prim": lambda: ref["geom.march_tris"][..., 10].astype(np.int32),
+        "geom.bounds_min": lambda: ref["geom.node_min"][0],
+        "geom.bounds_max": lambda: ref["geom.node_max"][0],
+    }
+    return derived[key]() if key in derived else ref[key]
+
+
 def torch_scene_arrays(scene) -> dict:
     out = {}
     for group in ("geom", "tex", "bsdf", "em"):
@@ -100,11 +115,9 @@ def test_compile_scene_leaves_equal(name):
     ref = jax_scene_arrays(jscene)
     scene = compile_scene(tcfg, device="cpu")
     got = torch_scene_arrays(scene)
-    assert len(got) == 38
+    assert len(got) == 45
     for key, value in got.items():
-        want = ref[key]
-        if key == "geom.packed_tris":
-            want = want.reshape(-1, 12)
+        want = reference_leaf(ref, key)
         assert value.dtype == want.dtype, key
         np.testing.assert_array_equal(value, want, err_msg=key)
     assert scene.n_emissive == jscene.n_emissive > 0
@@ -148,9 +161,9 @@ def test_camera_rays_match(res):
     ("emitter", "item 14"),
     ("sphere", "item 15"),
     ("volpath", "items 16-17"),
-    ("mesh_over_dense_max", "items 9-12"),
+    ("mesh_packet_traversal", "item 22"),
 ])
-def test_out_of_slice_scenes_are_refused(case, item):
+def test_out_of_slice_scenes_are_refused(monkeypatch, case, item):
     cfg = cornell_torch_config()
     if case == "conductor":
         cfg.bsdfs[0] = tir.BsdfInfo(btype=tir.BsdfType.CONDUCTOR)
@@ -161,8 +174,14 @@ def test_out_of_slice_scenes_are_refused(case, item):
     elif case == "volpath":
         cfg.integrator.itype = "volpath"
     else:
+        # a mesh past DENSE_MAX_PRIMS renders through the march or the
+        # pair traversal; the reference's packet traversal is not ported
         big = uv_sphere_mesh(92, 92)  # 16928 triangles
         cfg.instances.append(tir.InstanceInfo(shape="mesh", mesh=big, id_bsdf=0))
+        monkeypatch.setenv("MCPT_TRAVERSAL", "packet")
+        with pytest.raises(NotImplementedError, match=item):
+            Renderer(cfg, device="cpu").render(spp=1)
+        return
     with pytest.raises(NotImplementedError, match=item):
         compile_scene(cfg, device="cpu")
 
