@@ -18,9 +18,14 @@ Phases, one short line each:
   render-mesh    the box plus a 16200-triangle UV sphere (K1 at its design
                  size), 512x512, 4 spp, depth 8
   kernel-K2      the block march against its plain version, closest hit and
-                 any-hit, on 65536 camera rays and first-bounce rays of the
-                 march scene and on random rays in a random soup; times and
-                 bound on the bounce rays
+                 any-hit, on four inputs — 65536 camera rays and first-bounce
+                 rays of the march scene, random rays in a random soup, and
+                 the pair route's overflow-only fallback input on the pairs
+                 scene — each at four settings (defaults, one chunk per
+                 pick, super-chunk cull off, interval phase A on); each
+                 time beside its bound and the time before the redesign;
+                 camera and bounce rays
+                 also at 32, 64, 128 and 256 rays per block
   kernel-K3K4    the corridor kernel against its plain version (slots and
                  overflow equal) and the pair sweep against its plain version
                  on the pairs scene's camera and bounce rays, then the whole
@@ -38,6 +43,7 @@ without a CUDA device the script exits 1 before printing any result.
 A watchdog ends the run after WATCHDOG_S seconds, naming the phase.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -134,6 +140,10 @@ def cuda_ms(fn, reps, warmup=2):
 
 #: bytes of one hit record written: t, prim, v, w (4 each), inside, valid
 HIT_BYTES = 4 + 4 + 4 + 4 + 1 + 1
+#: bytes of a triangle row that a closest-hit test needs: p0, e1, e2 (an
+#: any-hit test also reads the opaque flag; a prim id is read only for
+#: each ray's winner)
+ROW_BYTES = 9 * 4
 #: the card's memory rate (H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 
@@ -272,7 +282,7 @@ def phase_kernel(dev):
     plain_ms = cuda_ms(
         lambda: ds.dense_sweep_plain(o, d, t_min, t_max, tris), reps=5, warmup=1)
     live = int((t_max > t_min).sum())
-    nbytes = n * (3 + 3 + 1 + 1) * 4 + p * 12 * 4 + n * HIT_BYTES
+    nbytes = n * (3 + 3 + 1 + 1) * 4 + p * ROW_BYTES + n * HIT_BYTES
     bound_ms, bound_by = bound(K1_OPS_PER_PAIR * live * p, nbytes)
     say(f"kernel-K1(a): {ms:.3f} ms (plain {plain_ms:.3f} ms), bound "
         f"{bound_ms:.3f} ms by {bound_by} at {peak_fp32()[0] / 1e12:.1f} "
@@ -474,9 +484,94 @@ def _march_args(g, o, d, lo, hi):
             g.march_min, g.march_max, g.march_tris, g.march_prim)
 
 
+#: K2's settings, each timed and checked on every input: the defaults, one
+#: chunk per pick, the super-chunk cull off, the interval phase A on
+K2_SETTINGS = {
+    "default": {},
+    "one-chunk": {"MCPT_MARCH_GROUP": "1"},
+    "super-off": {"MCPT_MARCH_SUPER": "0"},
+    "interval": {"MCPT_MARCH_IVAL": "1"},
+}
+#: rays per K2 block timed by kernel-K2's block sweep
+BLOCK_SWEEP = (32, 64, 128, 256)
+#: K2's times on the card before its redesign (commit 0edd6bf; NVIDIA H100
+#: 80GB HBM3, 700 W): the bounce set in chip_smoke, and the pair route's
+#: fallback launch per profile_frame (over all N rays, ~1% live); the
+#: camera and soup sets were not timed
+K2_BEFORE_MS = {"camera": None, "bounce": 8.701, "soup": None, "fallback": 6.4}
+
+
+@contextlib.contextmanager
+def knobs(env):
+    """Set environment knobs for the duration of a block."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def k2_bound(args, block):
+    """K2's bound on one input: what the function needs from this run's
+    data.  Operations: 27 per slab test of a live ray against every chunk,
+    46 per triangle of every chunk a lane must sweep (its entry below its
+    final t).  Bytes, of the closest-hit call that is timed: t_min and
+    t_max of every ray, o and d of the live ones, the chunk boxes, the
+    rows of the chunks some lane sweeps (ROW_BYTES each), the prim id of
+    each hit ray, every output once.  Also returns the lane-chunk sweeps and the chunk visits
+    the blocks' unions hold."""
+    import torch
+
+    from mcpt_tpu_torch.ops import march_sweep as msw
+
+    o, d, lo, hi, cmin, cmax, tris, prim = args
+    lm, ls = prim.shape
+    plain = msw.march_sweep_plain(*args)
+    t_final = plain.t
+    ent = msw.chunk_entry(o, d, lo, hi, cmin, cmax)
+    need = ent < t_final[:, None]
+    lane_visits = int(need.sum())
+    pad = -len(o) % block
+    ent_b = torch.cat([ent, ent.new_full((pad, lm), float("inf"))]
+                      ).view(-1, block, lm).amin(dim=1)
+    cap = torch.cat([torch.where(hi > lo, t_final, torch.zeros_like(t_final)),
+                     t_final.new_zeros(pad)]).view(-1, block).amax(dim=1)
+    block_visits = int((ent_b < cap[:, None]).sum())
+    live = int((hi > lo).sum())
+    swept = int(need.any(dim=0).sum())
+    ops = K1_OPS_PER_PAIR * lane_visits * ls + SLAB_OPS * live * lm
+    nbytes = (len(o) * 2 * 4 + live * 6 * 4 + lm * 6 * 4
+              + swept * ls * ROW_BYTES + int(plain.valid.sum()) * 4
+              + len(o) * HIT_BYTES)
+    return (*bound(ops, nbytes), lane_visits, block_visits)
+
+
+def fallback_input(dev):
+    """The pair route's K2 input on the pairs scene's first-bounce rays:
+    the rays whose corridor overflows K chunks, compacted and in block
+    order, as the route gives them to K2.  Returns (label, geometry,
+    args)."""
+    from mcpt_tpu_torch.ops import pair_sweep as psw
+    from mcpt_tpu_torch.ops.traversal import pair_inputs
+    from mcpt_tpu_torch.scene.builtin import cornell_mesh_pairs
+
+    scene, cam = _scene(cornell_mesh_pairs, dev)
+    g = scene.geom
+    _, o, d, lo, hi = camera_and_bounce(scene, cam, dev)[1]
+    overflow = pair_inputs(g, o, d, lo, hi, psw.pair_k())[0]
+    idx = overflow.nonzero()[:, 0]
+    return ("fallback", g, _march_args(g, o[idx], d[idx], lo[idx], hi[idx]))
+
+
 def phase_kernel_k2(dev):
     import torch
 
+    from mcpt_tpu_torch import build
     from mcpt_tpu_torch.ops import march_sweep as msw
     from mcpt_tpu_torch.ops.math import MAX_FLOAT
     from mcpt_tpu_torch.scene.builtin import cornell_mesh_march
@@ -484,7 +579,9 @@ def phase_kernel_k2(dev):
 
     scene, cam = _scene(cornell_mesh_march, dev)
     g = scene.geom
-    sets = [(label, g, *rays) for label, *rays in camera_and_bounce(scene, cam, dev)]
+    block = msw.ray_block()
+    sets = [(label, g, _march_args(g, *rays))
+            for label, *rays in camera_and_bounce(scene, cam, dev)]
     # a random soup of 20000 triangles and random rays, every 16th dead
     soup = random_tris(20000, seed=5)
     verts = np.stack([soup[:, 0:3], soup[:, 0:3] + soup[:, 3:6],
@@ -494,54 +591,69 @@ def phase_kernel_k2(dev):
     o_np, d_np = random_rays(TILE, seed=6)
     hi_s = torch.full((TILE,), MAX_FLOAT, device=dev)
     hi_s[::16] = 0.0
-    sets.append(("soup", g_s, torch.as_tensor(o_np, device=dev),
-                 torch.as_tensor(d_np, device=dev),
-                 torch.full((TILE,), 1e-4, device=dev), hi_s))
-    max_err = 0.0
-    for label, geom, o, d, lo, hi in sets:
-        args = _march_args(geom, o, d, lo, hi)
-        line = []
-        for any_hit in (False, True):
-            got = msw.march_sweep(*args, any_hit=any_hit)
-            ref = msw.march_sweep_plain(*args, any_hit=any_hit)
-            err, n_hit, n_tie = same_hits(got, ref, args[0], args[1],
-                                          geom.packed_tris, args[2],
-                                          f"K2 {label} any_hit={any_hit}",
-                                          any_hit)
-            max_err = max(max_err, err)
-            line.append(f"{'any' if any_hit else 'closest'} hits {n_hit}"
-                        + ("" if any_hit else f" ties {n_tie}"))
-        say(f"kernel-K2 {label}: {TILE} rays x {geom.n_march_leaves} chunks "
-            f"of {geom.march_leaf} match plain ({', '.join(line)})")
+    sets.append(("soup", g_s, _march_args(
+        g_s, torch.as_tensor(o_np, device=dev),
+        torch.as_tensor(d_np, device=dev),
+        torch.full((TILE,), 1e-4, device=dev), hi_s)))
+    sets.append(fallback_input(dev))
 
-    # time and bound on the main path's bounce rays
-    args = _march_args(g, *sets[1][2:])
-    ms = cuda_ms(lambda: msw.march_sweep(*args), reps=20)
+    lib = build.library()
+    max_err = 0.0
+    times = {}
+    for label, geom, args in sets:
+        lm, ls = geom.march_prim.shape
+        supers = (geom.march_super_min, geom.march_super_max)
+        refs = [msw.march_sweep_plain(*args, any_hit=a) for a in (False, True)]
+        bound_ms, bound_by, lane_visits, block_visits = k2_bound(args, block)
+        before = K2_BEFORE_MS[label]
+        for setting, env in K2_SETTINGS.items():
+            with knobs(env):
+                n_sup = (0 if msw.use_interval() or not msw.use_super_cull()
+                         else supers[0].shape[0])
+                cg, smem = msw.card_group(lib, ls, lm, block, n_sup)
+                line = []
+                for any_hit, ref in zip((False, True), refs):
+                    got = msw.march_sweep(*args, any_hit=any_hit,
+                                          supers=supers)
+                    err, n_hit, n_tie = same_hits(
+                        got, ref, args[0], args[1], geom.packed_tris, args[2],
+                        f"K2 {label} {setting} any_hit={any_hit}", any_hit)
+                    max_err = max(max_err, err)
+                    line.append(f"{'any' if any_hit else 'closest'} hits "
+                                f"{n_hit}"
+                                + ("" if any_hit else f" ties {n_tie}"))
+                ms = cuda_ms(lambda: msw.march_sweep(*args, supers=supers),
+                             reps=20)
+            times[(label, setting)] = ms
+            say(f"kernel-K2 {label} {setting}: {len(args[0])} rays "
+                f"({int((args[3] > args[2]).sum())} live) x {lm} chunks of "
+                f"{ls}, block {block}, group {cg}, {smem} B smem: match plain "
+                f"({', '.join(line)}); {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"by {bound_by}, before the redesign "
+                + (f"{before} ms" if before is not None else "not measured"))
+        say(f"kernel-K2 {label}: {lane_visits} lane-chunk sweeps of {ls}, "
+            f"block unions {block_visits} chunk visits")
+        if label == "bounce":
+            bounce = (args, bound_ms, bound_by, lm, ls)
+        if label in ("camera", "bounce"):
+            # the evidence for the default block size: the same input at
+            # each size, default knobs otherwise
+            line = []
+            for blk in BLOCK_SWEEP:
+                with knobs({"MCPT_MARCH_BLOCK": str(blk)}):
+                    ms_b = cuda_ms(lambda: msw.march_sweep(
+                        *args, supers=supers), reps=10)
+                line.append(f"{blk}: {ms_b:.4f}")
+            say(f"kernel-K2 {label} block sweep (rays per block: ms): "
+                + ", ".join(line))
+
+    # the plain version's time, and the kernels line, on the bounce rays
+    args, bound_ms, bound_by, lm, ls = bounce
     plain_ms = cuda_ms(lambda: msw.march_sweep_plain(*args), reps=3, warmup=1)
-    o, d, lo, hi, cmin, cmax, tris, prim = args
-    lm, ls = prim.shape
-    t_final = msw.march_sweep_plain(*args).t
-    ent = msw.chunk_entry(o, d, lo, hi, cmin, cmax)
-    lane_visits = int((ent < t_final[:, None]).sum())
-    r = msw.ray_block()
-    pad = -len(o) % r
-    ent_b = torch.cat([ent, ent.new_full((pad, lm), float("inf"))]
-                      ).view(-1, r, lm).amin(dim=1)
-    cap = torch.cat([torch.where(hi > lo, t_final, torch.zeros_like(t_final)),
-                     t_final.new_zeros(pad)]).view(-1, r).amax(dim=1)
-    block_visits = int((ent_b < cap[:, None]).sum())
-    live = int((hi > lo).sum())
-    # what the function needs: t_min, t_max of every ray, o, d of the live
-    # ones, the chunk boxes, the rows of the chunks some lane must sweep
-    swept = int((ent < t_final[:, None]).any(dim=0).sum())
-    ops = K1_OPS_PER_PAIR * lane_visits * ls + SLAB_OPS * live * lm
-    nbytes = (len(o) * 2 * 4 + live * 6 * 4 + lm * 6 * 4
-              + swept * ls * 13 * 4 + len(o) * HIT_BYTES)
-    bound_ms, bound_by = bound(ops, nbytes)
-    say(f"kernel-K2 bounce: {ms:.3f} ms (plain {plain_ms:.3f} ms), bound "
-        f"{bound_ms:.4f} ms by {bound_by}: {live} live rays x {lm} slab tests "
-        f"+ {lane_visits} lane-chunk sweeps of {ls} (block unions: "
-        f"{block_visits} chunk visits x {r} lanes)")
+    ms = times[("bounce", "default")]
+    say(f"kernel-K2 bounce: {ms:.4f} ms at the defaults (plain "
+        f"{plain_ms:.3f} ms), bound {bound_ms:.4f} ms by {bound_by}; before "
+        f"the redesign {K2_BEFORE_MS['bounce']} ms")
     return {
         "name": "march_sweep", "route": "cuda",
         "source": "mcpt_tpu_torch/csrc/march_sweep.cu",
@@ -549,7 +661,9 @@ def phase_kernel_k2(dev):
         "launches": None, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-        "shape": f"{len(o)} bounce rays x {lm} chunks of {ls}",
+        "shape": f"{len(args[0])} bounce rays x {lm} chunks of {ls}",
+        "ms_by_input_and_setting": {f"{k[0]}/{k[1]}": v
+                                    for k, v in times.items()},
     }
 
 
@@ -620,9 +734,11 @@ def phase_kernel_k3k4(dev):
     live_pairs = len(live_c)
     # a dead pair needs only its chunk id and t_max (its output t); a live
     # one its ray and t_min too, and the rows of the chunks live pairs name
+    # (ROW_BYTES each, closest hit); a hit pair the prim id of its winner
+    k4_hits = int(psw.pair_sweep_plain(*pargs).valid.sum())
     k4_bytes = (m * 2 * 4 + live_pairs * 7 * 4
-                + int(torch.unique(live_c).numel()) * ls * 13 * 4
-                + m * HIT_BYTES)
+                + int(torch.unique(live_c).numel()) * ls * ROW_BYTES
+                + k4_hits * 4 + m * HIT_BYTES)
     k4_bound, k4_by = bound(K1_OPS_PER_PAIR * live_pairs * ls, k4_bytes)
     say(f"kernel-K3 bounce: {k3_ms:.3f} ms (plain {k3_plain:.3f} ms), bound "
         f"{k3_bound:.4f} ms by {k3_by} ({live} live of {n} rays x {lm} "
@@ -679,13 +795,10 @@ def phase_pairs_by_march(dev, smi, pairs_wall):
     rule, which sends scenes of chunks under 256 prims to the pair route."""
     from mcpt_tpu_torch.scene.builtin import cornell_mesh_pairs
 
-    os.environ["MCPT_TRAVERSAL"] = "march"
-    try:
+    with knobs({"MCPT_TRAVERSAL": "march"}):
         counts, wall = phase_render_route(
             dev, smi, "pairs-by-march", cornell_mesh_pairs, "march", ("K2",),
             against_cpu=False)
-    finally:
-        del os.environ["MCPT_TRAVERSAL"]
     if counts["K3"] or counts["K4"]:
         raise AssertionError(f"pairs-by-march: K3/K4 launched ({counts})")
     faster = "pairs" if pairs_wall < wall else "march"

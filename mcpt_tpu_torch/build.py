@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every source in `csrc/` is compiled by `nvcc` for sm_90a into one shared
-library with a plain C interface, which `ctypes` loads.  (PyTorch's
+Every source in `csrc/` is compiled by its own `nvcc` for sm_90a, all at
+once, and the objects are linked into one shared library with a plain C
+interface, which `ctypes` loads.  (PyTorch's
 `cpp_extension.load` would include PyTorch's headers and needs ninja; a
 plain `nvcc` build of a C-ABI file takes seconds instead of minutes.)
 
@@ -33,7 +34,7 @@ NVCC_FLAGS = (
     # plain PyTorch versions' arithmetic op for op
     "--fmad=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -42,7 +43,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "mcpt_dense_sweep": [_P, _P, _P, _P, _P, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P],
-    "mcpt_march_sweep": [_P] * 8 + [_I] * 5 + [_P] * 7,
+    "mcpt_march_sweep": [_P] * 10 + [_I] * 7 + [_P] * 7,
+    "mcpt_march_smem_bytes": [_I] * 5,
     "mcpt_corridor": [_P] * 6 + [_I] * 3 + [_P] * 3,
     "mcpt_pair_sweep": [_P] * 7 + [_I] * 5 + [_P] * 7,
 }
@@ -80,23 +82,41 @@ def build() -> dict:
     if out.exists():
         return {"path": str(out), "seconds": 0.0, "built": False, "ptxas": []}
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.tmp{os.getpid()}")
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    tag = f"tmp{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    # one nvcc per source, all started together, then one link
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    ptxas, failed = [], None
+    for cmd, obj, proc in jobs:
+        _, err = proc.communicate()
+        ptxas += [ln.strip() for ln in err.splitlines()
+                  if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, err)
+    objs = [obj for _, obj, _ in jobs]
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    try:
+        if failed is None:
+            cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed = (cmd, proc.returncode, proc.stderr)
+        if failed is not None:
+            cmd, code, err = failed
+            print(err, flush=True)
+            raise RuntimeError(f"nvcc failed (exit {code}): {' '.join(cmd)}")
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        print(proc.stderr, flush=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}"
-        )
-    os.replace(tmp, out)
-    ptxas = [ln.strip() for ln in proc.stderr.splitlines()
-             if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
-    return {"path": str(out), "seconds": seconds, "built": True,
-            "ptxas": ptxas}
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return {"path": str(out), "seconds": time.perf_counter() - t0,
+            "built": True, "ptxas": ptxas}
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,5 +127,6 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = (ctypes.c_longlong if name.endswith("_bytes")
+                      else ctypes.c_int)
     return lib

@@ -14,6 +14,7 @@ sample streams, and with them the image, match the reference's.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -36,12 +37,12 @@ from mcpt_tpu_torch.ops.warps import sample_triangle_uniform, searchsorted_cdf
 from mcpt_tpu_torch.render.camera import generate_rays
 from mcpt_tpu_torch.scene.compile import SceneData
 
-#: shadow-ray Russian-roulette threshold, the reference's default
-#: MCPT_NEE_RR_TAU: an NEE query whose potential contribution is below
-#: tau is traced with probability contribution/tau and reweighted.  The
-#: reference's tau = 0 (RR off) and its opacity-mask draws are not on
-#: this slice, so the draw count is fixed (nee_draw_count)
-NEE_RR_TAU = 0.05
+def nee_rr_tau() -> float:
+    """Shadow-ray Russian-roulette threshold (the reference's _nee_rr_tau,
+    path.py:286-299): an NEE query whose potential contribution is below
+    tau is traced with probability contribution/tau and reweighted.
+    MCPT_NEE_RR_TAU overrides the default 0.05; 0 disables it."""
+    return float(os.environ.get("MCPT_NEE_RR_TAU", "0.05"))
 
 
 class HitAttrs(NamedTuple):
@@ -124,22 +125,25 @@ def _bsdf_eval(scene, hit, wi, wo):
 
 def nee_draw_count(scene: SceneData) -> int:
     """Uniform draws one _direct_lighting call consumes, as the
-    reference counts them for this scene class (path.py:302) so the RNG
-    streams stay aligned: three for the area-light sample and one
-    shadow-ray RR coin, or the reference's minimum of one draw."""
-    return 4 if scene.n_emissive else 1
+    reference counts them for this scene class (path.py:302-318) so the
+    RNG streams stay aligned: three for the area-light sample and, when
+    shadow-ray RR is on (tau > 0), its coin; or the reference's minimum
+    of one draw."""
+    if not scene.n_emissive:
+        return 1
+    return 4 if nee_rr_tau() > 0.0 else 3
 
 
-def _nee_rr(pend, live, xi, beta):
+def _nee_rr(pend, live, xi, beta, tau):
     """Shadow-ray RR on one query's pending contribution (path.py:321).
 
     The decision sees the full pending radiance beta * pend; survivors
     below tau are reweighted by tau / m, so E[pend'] = pend."""
     m = (pend * beta).amax(dim=-1)
-    p = torch.clamp(m / NEE_RR_TAU, 0.0, 1.0)
-    fire = m < NEE_RR_TAU
+    p = torch.clamp(m / tau, 0.0, 1.0)
+    fire = m < tau
     keep = ~fire | (xi < p)
-    scale = torch.where(fire, NEE_RR_TAU / torch.clamp(m, min=1e-20),
+    scale = torch.where(fire, tau / torch.clamp(m, min=1e-20),
                         torch.ones_like(m))
     pend = _where3(fire & keep, pend * scale[..., None], pend)
     return pend, live & keep
@@ -177,14 +181,16 @@ def _nee_area_query(scene: SceneData, hit: HitAttrs, wo, alive, xi0, xi1, xi2):
 
 def _direct_lighting(scene: SceneData, hit: HitAttrs, wo, alive, xi, beta):
     """NEE: one CDF-sampled area light against its shadow ray, with
-    shadow-ray RR (csrt EvaluateDirectLightPath, path.cpp:138-236).
-    Shadow segments run surface -> light; occlusion of the segment is
-    symmetric.  xi: [nee_draw_count, N] uniforms."""
+    shadow-ray RR where tau > 0 (csrt EvaluateDirectLightPath,
+    path.cpp:138-236).  Shadow segments run surface -> light; occlusion
+    of the segment is symmetric.  xi: [nee_draw_count, N] uniforms."""
     if not scene.n_emissive:
         return torch.zeros_like(wo)
     wi, dist, geo_ok, contrib = _nee_area_query(
         scene, hit, wo, alive, xi[0], xi[1], xi[2])
-    contrib, geo_ok = _nee_rr(contrib, geo_ok, xi[3], beta)
+    tau = nee_rr_tau()
+    if tau > 0.0:  # at tau = 0 the coin is not drawn (nee_draw_count)
+        contrib, geo_ok = _nee_rr(contrib, geo_ok, xi[3], beta, tau)
     occluded = shadow_occluded(scene, hit.position, -wi, geo_ok, dist)
     return _where3(occluded | ~geo_ok, torch.zeros_like(contrib), contrib)
 

@@ -10,7 +10,8 @@ Scenes of at most DENSE_MAX_PRIMS padded prims go to the dense sweep
   (kernel K2) over the SAH chunk pack, then the inverse permutation;
 * ``pairs`` — each ray's first K corridor chunks (kernel K3), the
   (ray, chunk) pairs sorted by chunk and swept (kernel K4), a K-way
-  per-ray min, and the block march for rays whose corridor overflows.
+  per-ray min, and the block march over the rays whose corridor
+  overflows, compacted first.
 
 Every kernel runs for CUDA tensors and its plain version for CPU
 tensors; nothing falls back from one to the other.
@@ -163,8 +164,35 @@ def _intersect_march_cuda(geom, o, d, t_min, t_max, any_hit,
     order = march_order(geom, o, d, t_min, t_max, sort_bias)
     hit = msw.march_sweep(o[order], d[order], t_min[order], t_max[order],
                           geom.march_min, geom.march_max, geom.march_tris,
-                          geom.march_prim, any_hit=any_hit)
+                          geom.march_prim, any_hit=any_hit,
+                          supers=(geom.march_super_min,
+                                  geom.march_super_max))
     return _unsort(order, hit)
+
+
+def _march_overflow(geom, o, d, t_min, t_max, overflow, any_hit) -> GeomHit:
+    """The block march over the rays whose corridor overflows, and only
+    those: they are compacted first (one host sync, for their count), so
+    that the ~1% of long rays fill their blocks instead of being sorted
+    among N and launched with N / ray_block() blocks.  Returns [N] hits,
+    invalid where `overflow` is False."""
+    n = o.shape[0]
+    idx = overflow.nonzero()[:, 0]
+    full = GeomHit(
+        valid=torch.zeros(n, dtype=torch.bool, device=o.device),
+        t=t_max.clone(),
+        prim=torch.zeros(n, dtype=torch.int32, device=o.device),
+        v=torch.zeros(n, dtype=torch.float32, device=o.device),
+        w=torch.zeros(n, dtype=torch.float32, device=o.device),
+        inside=torch.zeros(n, dtype=torch.bool, device=o.device),
+    )
+    if idx.numel() == 0:
+        return full
+    hit = _intersect_march_cuda(geom, o[idx], d[idx], t_min[idx], t_max[idx],
+                                any_hit)
+    for dst, src in zip(full, hit):
+        dst[idx] = src
+    return full
 
 
 # ---------------------------------------------------------------- pairs
@@ -195,8 +223,8 @@ def _intersect_pairs(geom, o, d, t_min, t_max, any_hit) -> GeomHit:
     """Pair-scheduled traversal: the (ray, chunk) pairs of pair_inputs are
     swept against their own chunk only (kernel K4); the per-ray winner is
     a K-way min with the lowest slot winning among equal t.  Rays whose
-    corridor overflows go through the block march instead, as its only
-    live lanes."""
+    corridor overflows go through the block march instead
+    (_march_overflow)."""
     n = o.shape[0]
     k = psw.pair_k()
     overflow, order, *pairs = pair_inputs(geom, o, d, t_min, t_max, k)
@@ -217,10 +245,8 @@ def _intersect_pairs(geom, o, d, t_min, t_max, any_hit) -> GeomHit:
         return torch.where(valid_r, x, torch.zeros_like(x))
 
     t_r = torch.where(valid_r, tm, t_max)
-    # overflow fallback: the block march with only the overflow lanes live
-    fb = _intersect_march_cuda(geom, o, d, t_min,
-                               torch.where(overflow, t_max,
-                                           torch.zeros_like(t_max)), any_hit)
+    # overflow fallback: the block march over the overflow lanes alone
+    fb = _march_overflow(geom, o, d, t_min, t_max, overflow, any_hit)
     take = fb.valid
     return GeomHit(
         valid=valid_r | take,

@@ -10,6 +10,8 @@ the tile or chunk sizes.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -23,6 +25,13 @@ class Renderer:
     """Facade: config -> committed scene -> film (csrt RayTracer)."""
 
     def __init__(self, config: RendererConfig, device="cuda"):
+        # config-tier perf knobs (RendererConfig.perf) become MCPT_* env
+        # defaults before the scene commit reads them, as the reference's
+        # Renderer does (mcpt_tpu/render/renderer.py:176-183): explicit env
+        # vars still win
+        for key, value in getattr(config, "perf", {}).items():
+            os.environ.setdefault(
+                "MCPT_" + key.upper().replace(".", "_"), str(value))
         self.device = torch.device(device)
         self.config = config
         self.scene = compile_scene(config, self.device)
@@ -35,7 +44,14 @@ class Renderer:
 
         Work goes in (tile, spp_chunk) pieces: chunk s of a tile renders
         samples [offset, offset + s) of `spp` (u = (offset + k) / spp,
-        the reference's stratified jitter)."""
+        the reference's stratified jitter).  Only the regen engine is
+        ported: MCPT_ENGINE=chunked (the reference's per-sample wavefront)
+        raises."""
+        engine = os.environ.get("MCPT_ENGINE", "regen")
+        if engine != "regen":
+            raise NotImplementedError(
+                f"MCPT_ENGINE={engine}: the chunked per-sample engine "
+                "(render_tile + shade) is ROADMAP item 17")
         cam = self.camera
         n_pix = cam.width * cam.height
         spp = spp or cam.spp

@@ -21,6 +21,7 @@ import torch
 
 from mcpt_tpu_torch.models.bsdf import BsdfTables, build_bsdf_tables
 from mcpt_tpu_torch.models.texture import TextureTables
+from mcpt_tpu_torch.ops.march_sweep import super_boxes
 from mcpt_tpu_torch.scene.geometry import Geometry, commit_geometry
 from mcpt_tpu_torch.scene.ir import BsdfType, RendererConfig
 from mcpt_tpu_torch.scene.shapes import instance_triangles, triangle_areas
@@ -203,7 +204,8 @@ def scene_from_arrays(arrays: dict, device="cuda") -> SceneData:
     `geom.packed_tris` may come in the reference's [leaves, leaf, 12]
     layout, and the geometry fields the reference does not have follow
     from those it has: march_prim from march_tris' prim-id channel, the
-    scene bounds from the BVH root (geom.node_min[0], geom.node_max[0]).
+    scene bounds from the BVH root (geom.node_min[0], geom.node_max[0]),
+    the super-chunk unions from the chunk boxes.
     The static facts follow from the tables: emissive rows have a
     positive pdf_area, and the present BSDF types are those of the
     table's rows."""
@@ -219,10 +221,13 @@ def scene_from_arrays(arrays: dict, device="cuda") -> SceneData:
     def get(name):
         return torch.as_tensor(np.array(arrays[name]), device=device)
 
-    def group(cls, prefix):
-        return cls(**{f: get(f"{prefix}.{f}") for f in cls._fields})
+    def group(cls, prefix, **given):
+        return cls(**{f: given[f] if f in given else get(f"{prefix}.{f}")
+                      for f in cls._fields})
 
-    geom = group(Geometry, "geom")
+    supers = super_boxes(get("geom.march_min"), get("geom.march_max"))
+    geom = group(Geometry, "geom", march_super_min=supers[0],
+                 march_super_max=supers[1])
     return SceneData(
         geom=geom._replace(packed_tris=geom.packed_tris.reshape(-1, 12)),
         tex=group(TextureTables, "tex"),

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mcpt_tpu_torch.ops.march_sweep import super_boxes
 from mcpt_tpu_torch.scene.bvh import morton_order
 
 
@@ -50,6 +51,11 @@ class Geometry(NamedTuple):
     march_prim: torch.Tensor
     march_min: torch.Tensor  # [Lm, 3] chunk AABBs (empty chunk: 3e37)
     march_max: torch.Tensor
+    #: [S, 3] union AABBs of each run of 128 consecutive chunks (the last
+    #: run may be partial), for K2's super-chunk cull: static per scene,
+    #: so built here once (the reference builds them per launch)
+    march_super_min: torch.Tensor
+    march_super_max: torch.Tensor
     #: [P] int32 chunk of each sorted prim (padding prims -> 0)
     march_chunk_of_prim: torch.Tensor
     #: [3] scene bounds: the union of the real prims' AABBs (the
@@ -249,6 +255,8 @@ def commit_geometry(tri_positions, tri_normals, tri_texcoords, tri_tangents,
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
+    super_min, super_max = super_boxes(dev(m_min), dev(m_max))
+
     return Geometry(
         p0=dev(pos_s[:, 0]),
         e1=dev(pos_s[:, 1] - pos_s[:, 0]),
@@ -264,6 +272,8 @@ def commit_geometry(tri_positions, tri_normals, tri_texcoords, tri_tangents,
         march_prim=dev(m_prim),
         march_min=dev(m_min),
         march_max=dev(m_max),
+        march_super_min=super_min,
+        march_super_max=super_max,
         march_chunk_of_prim=dev(chunk_of_prim),
         bounds_min=dev(pos.min(axis=(0, 1))),
         bounds_max=dev(pos.max(axis=(0, 1))),

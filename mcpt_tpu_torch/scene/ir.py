@@ -146,6 +146,7 @@ class RendererConfig:
     media: list = dataclasses.field(default_factory=list)      # [MediumInfo]
     instances: list = dataclasses.field(default_factory=list)  # [InstanceInfo]
     emitters: list = dataclasses.field(default_factory=list)   # [EmitterInfo]
-    # performance knobs of the reference's config tiers; the port's main
-    # path has no knobs yet and ignores them
+    # performance knobs of the reference's config tiers: Renderer turns
+    # each into an MCPT_* environment default ({"march_leaf": 64} ->
+    # MCPT_MARCH_LEAF=64) before it commits the scene
     perf: dict = dataclasses.field(default_factory=dict)

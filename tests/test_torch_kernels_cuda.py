@@ -90,40 +90,152 @@ def _rays(n, dev, seed=42):
             torch.full((n,), 1e-4, device=dev), torch.as_tensor(t_max, device=dev))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("any_hit", [False, True])
-@pytest.mark.parametrize("n_tris,leaf,block", [
-    (3000, "256", "256"),   # a few fat chunks
-    (5000, "16", "96"),     # ~400 thin chunks: several phase-A tiles
-    (60000, "4", "256"),    # >12k chunks: >48 KB of dynamic shared memory
-])
-def test_march_sweep_kernel_matches_plain(monkeypatch, n_tris, leaf, block,
-                                          any_hit):
-    """K2 against the per-lane plain march on rays in the wrapper's block
-    order: valid equal; closest hit: t bit-equal, inside equal, prim equal
-    but on exact-t ties (chip_smoke.same_hits)."""
-    from chip_smoke import same_hits
-    from mcpt_tpu_torch.ops import march_sweep as msw
-    from mcpt_tpu_torch.ops.traversal import march_order
+#: K2's knob settings: the group target (one chunk per pick, the default,
+#: a value clamped by shared memory), the super-chunk cull off, the interval
+#: phase A on (with the cull on and off)
+K2_SETTINGS = {
+    "default": {},
+    "one-chunk": {"MCPT_MARCH_GROUP": "1"},
+    "group-clamped": {"MCPT_MARCH_GROUP": "100000000"},
+    "super-off": {"MCPT_MARCH_SUPER": "0"},
+    "interval": {"MCPT_MARCH_IVAL": "1"},
+    "interval-super-off": {"MCPT_MARCH_IVAL": "1", "MCPT_MARCH_SUPER": "0"},
+}
 
-    dev = _cuda()
-    monkeypatch.setenv("MCPT_MARCH_LEAF", leaf)
-    monkeypatch.setenv("MCPT_MARCH_MAX_CHUNKS", "100000")
-    monkeypatch.setenv("MCPT_MARCH_BLOCK", block)
-    g = _soup_geometry(n_tris, dev)
-    o, d, lo, hi = _rays(20000, dev)
-    order = march_order(g, o, d, lo, hi)
-    args = (o[order], d[order], lo[order], hi[order], g.march_min,
-            g.march_max, g.march_tris, g.march_prim)
+
+def _check_march(args, g, any_hit, supers):
+    """K2 against the per-lane plain march on rays in block order: valid
+    equal; closest hit: t bit-equal, inside equal, prim equal but on
+    exact-t ties (chip_smoke.same_hits).  Returns the block's shared
+    memory in bytes."""
+    import warnings
+
+    from chip_smoke import same_hits
+    from mcpt_tpu_torch.build import library
+    from mcpt_tpu_torch.ops import march_sweep as msw
+
+    lm, ls = g.march_prim.shape
+    block = msw.ray_block()
+    n_sup = 0 if msw.use_interval() or not msw.use_super_cull() else -(-lm // 128)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, smem = msw.card_group(library(), ls, lm, block, n_sup)
     before = msw.launches
-    got = msw.march_sweep(*args, any_hit=any_hit)
+    got = msw.march_sweep(*args, supers, any_hit=any_hit)
     torch.cuda.synchronize()
     assert msw.launches == before + 1
     ref = msw.march_sweep_plain(*args, any_hit=any_hit)
     _, n_hit, _ = same_hits(got, ref, args[0], args[1], g.packed_tris,
                             args[2], "K2", any_hit)
     assert n_hit > 0
-    assert not bool(got.valid[hi[order] <= lo[order]].any())
+    assert not bool(got.valid[args[3] <= args[2]].any())
+    return smem
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(K2_SETTINGS))
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n_tris,leaf,block", [
+    (3000, "256", "256"),   # a few fat chunks
+    (5000, "16", "96"),     # ~400 thin chunks, 96-ray blocks of 288 threads
+    (20000, "64", "32"),    # a block of 32 rays
+    (60000, "4", "256"),    # >12k chunks
+])
+def test_march_sweep_kernel_matches_plain(monkeypatch, n_tris, leaf, block,
+                                          any_hit, setting):
+    """K2 at every knob setting against the plain march (_check_march).
+    Every case but one chunk per pick asks for more than 48 KB of shared
+    memory, and the >12k-chunk case does at every setting."""
+    from mcpt_tpu_torch.ops.traversal import march_order
+
+    dev = _cuda()
+    monkeypatch.setenv("MCPT_MARCH_LEAF", leaf)
+    monkeypatch.setenv("MCPT_MARCH_MAX_CHUNKS", "100000")
+    monkeypatch.setenv("MCPT_MARCH_BLOCK", block)
+    for k, v in K2_SETTINGS[setting].items():
+        monkeypatch.setenv(k, v)
+    g = _soup_geometry(n_tris, dev)
+    o, d, lo, hi = _rays(20000, dev)
+    order = march_order(g, o, d, lo, hi)
+    args = (o[order], d[order], lo[order], hi[order], g.march_min,
+            g.march_max, g.march_tris, g.march_prim)
+    smem = _check_march(args, g, any_hit,
+                        (g.march_super_min, g.march_super_max))
+    assert smem > 48 * 1024 or setting == "one-chunk"
+    if n_tris == 60000:
+        assert smem > 48 * 1024
+
+
+@pytest.mark.cuda
+def test_march_group_clamped_to_shared_memory(monkeypatch):
+    """A group target past the block's shared memory is clamped, with a
+    warning, to the largest group whose layout (the kernel's own,
+    mcpt_march_smem_bytes) fits MAX_SMEM."""
+    from mcpt_tpu_torch.build import library
+    from mcpt_tpu_torch.ops import march_sweep as msw
+
+    _cuda()
+    lib = library()
+    monkeypatch.setenv("MCPT_MARCH_GROUP", str(1 << 24))
+    with pytest.warns(UserWarning, match="clamping"):
+        cg, smem = msw.card_group(lib, 256, 299, 256, 3)
+    assert 1 <= cg < msw.chunk_group(256)
+    assert smem == lib.mcpt_march_smem_bytes(299, 256, 3, 256, cg) <= msw.MAX_SMEM
+    assert lib.mcpt_march_smem_bytes(299, 256, 3, 256, cg + 1) > msw.MAX_SMEM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", ["default", "interval", "one-chunk"])
+def test_march_sweep_kernel_partial_super(monkeypatch, setting):
+    """300 chunks, not a multiple of the 128-chunk super run: the last
+    union is partial."""
+    from mcpt_tpu_torch.ops.march_sweep import super_boxes
+    from mcpt_tpu_torch.ops.traversal import march_order
+
+    dev = _cuda()
+    monkeypatch.setenv("MCPT_MARCH_LEAF", "16")
+    for k, v in K2_SETTINGS[setting].items():
+        monkeypatch.setenv(k, v)
+    g = _soup_geometry(8000, dev)
+    assert g.n_march_leaves > 300
+    g = g._replace(march_tris=g.march_tris[:300], march_prim=g.march_prim[:300],
+                   march_min=g.march_min[:300], march_max=g.march_max[:300])
+    o, d, lo, hi = _rays(20000, dev)
+    order = march_order(g, o, d, lo, hi)
+    args = (o[order], d[order], lo[order], hi[order], g.march_min,
+            g.march_max, g.march_tris, g.march_prim)
+    supers = super_boxes(g.march_min, g.march_max)
+    assert supers[0].shape == (3, 3)
+    for any_hit in (False, True):
+        _check_march(args, g, any_hit, supers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(K2_SETTINGS))
+def test_march_sweep_kernel_on_the_overflow_fallback(monkeypatch, setting):
+    """The pair route's fallback input: only the rays whose corridor
+    overflows K=2 chunks, compacted, in blocks of the default size."""
+    from mcpt_tpu_torch.ops import march_sweep as msw
+    from mcpt_tpu_torch.ops.traversal import march_order, pair_inputs
+
+    dev = _cuda()
+    monkeypatch.setenv("MCPT_MARCH_LEAF", "64")
+    monkeypatch.delenv("MCPT_MARCH_BLOCK", raising=False)
+    for k, v in K2_SETTINGS[setting].items():
+        monkeypatch.setenv(k, v)
+    g = _soup_geometry(20000, dev)
+    o, d, lo, hi = _rays(30000, dev)
+    overflow = pair_inputs(g, o, d, lo, hi, 2)[0]
+    idx = overflow.nonzero()[:, 0]
+    assert 0 < idx.numel() < 30000
+    o, d, lo, hi = o[idx], d[idx], lo[idx], hi[idx]
+    order = march_order(g, o, d, lo, hi)
+    args = (o[order], d[order], lo[order], hi[order], g.march_min,
+            g.march_max, g.march_tris, g.march_prim)
+    assert msw.ray_block() == msw.DEFAULT_BLOCK
+    supers = (g.march_super_min, g.march_super_max)
+    for any_hit in (False, True):
+        _check_march(args, g, any_hit, supers)
 
 
 @pytest.mark.cuda

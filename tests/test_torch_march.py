@@ -202,19 +202,146 @@ def test_plain_march_matches_xla_march(cut, dead, any_hit):
         assert not bool(got.valid[::dead].any())
 
 
-@pytest.mark.parametrize("any_hit", [False, True])
-def test_plain_march_matches_pallas_interpret(any_hit):
+#: K2's knobs as the reference reads them while it traces its march:
+#: the super-chunk cull, the interval phase A, the group's lane target
+MARCH_KNOBS = {
+    "default": {},
+    "super-off": {"MCPT_MARCH_SUPER": "0"},
+    "interval": {"MCPT_MARCH_IVAL": "1"},
+    "interval-super-off": {"MCPT_MARCH_IVAL": "1", "MCPT_MARCH_SUPER": "0"},
+    "group-256": {"MCPT_MARCH_GROUP": "256"},
+}
+
+
+@pytest.mark.parametrize("knobs,any_hit", [
+    ("default", False), ("default", True), ("super-off", False),
+    ("interval", False), ("interval-super-off", True), ("group-256", False),
+])
+def test_plain_march_matches_pallas_interpret(monkeypatch, knobs, any_hit):
     """The reference's Pallas block march in interpret mode, as
-    tests/test_pallas_march.py runs it."""
+    tests/test_pallas_march.py runs it, at each knob setting: the plain
+    per-lane march is the oracle of every one (only the visiting order
+    moves).  The reference reads the knobs while tracing, so its caches
+    are cleared."""
+    import jax
+
+    for k in ("MCPT_MARCH_SUPER", "MCPT_MARCH_IVAL", "MCPT_MARCH_GROUP"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in MARCH_KNOBS[knobs].items():
+        monkeypatch.setenv(k, v)
+    jax.clear_caches()
     jg, tg = _soup(900, seed=10, opaque_frac=0.6)
     o, d, t_max = _rays(500, seed=11, dead_every=5, cut=True)
     ref = JT._intersect_march_pallas(jg, o, d, 1e-4, jnp.asarray(t_max),
                                      any_hit, interpret=True)
+    jax.clear_caches()
     got = _plain(tg, o, d, t_max, any_hit)
     if any_hit:
         np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
     else:
         _assert_same_hits(got, ref, o, d, tg)
+
+
+@pytest.mark.parametrize("ls", [16, 64, 128, 256])
+@pytest.mark.parametrize("target", [None, "1", "100", "300", "512", "1024",
+                                    "1536"])
+def test_chunk_group_matches_reference(monkeypatch, ls, target):
+    """The port's group count is the reference's _chunk_group(ls, r) at
+    the default 256-ray block, wherever the reference's scoped-VMEM clamp
+    (a lane target above 384k / r = 1536) does not bind."""
+    from mcpt_tpu.ops.pallas_march import _chunk_group
+
+    if target is None:
+        monkeypatch.delenv("MCPT_MARCH_GROUP", raising=False)
+    else:
+        monkeypatch.setenv("MCPT_MARCH_GROUP", target)
+    assert msw.chunk_group(ls) == _chunk_group(ls, 256)
+
+
+def test_march_knobs_parse_as_the_reference(monkeypatch):
+    """MCPT_MARCH_GROUP, MCPT_MARCH_SUPER and MCPT_MARCH_IVAL: the values
+    the reference's march wrapper hands its kernel (caught at the kernel's
+    call) are those the port reads, for each distinct case of the two
+    flags (unset, "1", "0", another word); the group target is held by
+    test_chunk_group_matches_reference, and its clamp to the card's shared
+    memory by the card tests."""
+    import mcpt_tpu.ops.pallas_march as PM
+    from mcpt_tpu.ops.pallas_march import _chunk_group
+
+    jg, _ = _soup(300, seed=15)
+    o, d, t_max = _rays(64, seed=16)
+    seen = {}
+
+    def fake_march(rays, cmin, cmax, tris, **kw):
+        seen.update(kw)
+        g, _, r = rays.shape
+        return tuple(jnp.zeros((g, r, 1), t)
+                     for t in (jnp.float32, jnp.int32, jnp.float32,
+                               jnp.float32, jnp.float32))
+
+    monkeypatch.setattr(PM, "march_sweep", fake_march)
+    for sup, ival in ((None, "1"), ("1", None), ("0", "0"), ("yes", "true")):
+        for k, v in (("MCPT_MARCH_SUPER", sup), ("MCPT_MARCH_IVAL", ival)):
+            if v is None:
+                monkeypatch.delenv(k, raising=False)
+            else:
+                monkeypatch.setenv(k, v)
+        JT._intersect_march_pallas(jg, o, d, 1e-4, jnp.asarray(t_max), False)
+        assert msw.use_super_cull() == seen["super_cull"]
+        assert msw.use_interval() == seen["interval"]
+    monkeypatch.setenv("MCPT_MARCH_GROUP", "many")
+    with pytest.raises(ValueError):
+        _chunk_group(256, 256)
+    with pytest.raises(ValueError):
+        msw.chunk_group(256)
+
+
+@pytest.mark.parametrize("lm", [128, 256, 640])
+def test_super_boxes_match_reference(monkeypatch, lm):
+    """The port's super-chunk unions equal the smin/smax the reference's
+    march_sweep builds (pallas_march.py:467-486), caught where it calls
+    its kernel, for an Lm that is a multiple of 128."""
+    import jax
+    from jax.experimental import pallas as pl
+
+    import mcpt_tpu.ops.pallas_march as PM
+
+    r = np.random.default_rng(lm)
+    lo = r.uniform(-5, 5, size=(lm, 3)).astype(np.float32)
+    hi = lo + r.uniform(0, 2, size=(lm, 3)).astype(np.float32)
+    seen = []
+
+    def fake_pallas_call(kernel, **kw):
+        def run(*args):
+            seen.extend(args)
+            return [jnp.zeros(s.shape, s.dtype) for s in kw["out_shape"]]
+        return run
+
+    monkeypatch.setattr(pl, "pallas_call", fake_pallas_call)
+    cmin = jnp.asarray(np.concatenate([lo.T, np.zeros((1, lm), np.float32)]))
+    cmax = jnp.asarray(np.concatenate([hi.T, np.zeros((1, lm), np.float32)]))
+    with jax.disable_jit():
+        PM.march_sweep(jnp.zeros((1, 8, 128)), cmin, cmax,
+                       jnp.zeros((lm, 16, 128)), super_cull=True)
+    smin, smax = (np.asarray(x) for x in seen[3:5])
+    got_min, got_max = msw.super_boxes(torch.as_tensor(lo), torch.as_tensor(hi))
+    n_sup = lm // 128
+    assert got_min.shape == (n_sup, 3)
+    np.testing.assert_array_equal(got_min.numpy(), smin[:3, :n_sup].T)
+    np.testing.assert_array_equal(got_max.numpy(), smax[:3, :n_sup].T)
+
+
+def test_super_boxes_partial_last_run():
+    """An Lm that is not a multiple of 128: the last union covers the
+    remaining chunks only."""
+    r = np.random.default_rng(3)
+    lo = torch.as_tensor(r.uniform(-5, 5, size=(300, 3)).astype(np.float32))
+    hi = lo + 1.0
+    smin, smax = msw.super_boxes(lo, hi)
+    assert smin.shape == smax.shape == (3, 3)
+    for s, e in ((0, 128), (128, 256), (256, 300)):
+        assert torch.equal(smin[s // 128], lo[s:e].amin(dim=0))
+        assert torch.equal(smax[s // 128], hi[s:e].amax(dim=0))
 
 
 def test_march_wrapper_on_the_cpu():
@@ -271,7 +398,7 @@ def test_traversal_knobs(monkeypatch):
     with pytest.warns(UserWarning):
         assert msw.ray_block() == 224
     monkeypatch.delenv("MCPT_MARCH_BLOCK")
-    assert msw.ray_block() == 256
+    assert msw.ray_block() == msw.DEFAULT_BLOCK == 32
 
 
 def test_packet_strategy_is_refused(monkeypatch):

@@ -77,8 +77,17 @@ def reference_leaf(ref: dict, key: str) -> np.ndarray:
     same field, or for the geometry fields the reference does not keep,
     what it holds them in (march_prim in march_tris' channel 10, the scene
     bounds as the BVH root)."""
+    def super_runs(field, reduce):
+        # the reference's smin/smax expression (ops/pallas_march.py:475-482)
+        # over runs of 128 chunks, the last run partial
+        x = ref[field]
+        return np.stack([reduce(x[s:s + 128], axis=0)
+                         for s in range(0, x.shape[0], 128)])
+
     derived = {
         "geom.packed_tris": lambda: ref[key].reshape(-1, 12),
+        "geom.march_super_min": lambda: super_runs("geom.march_min", np.min),
+        "geom.march_super_max": lambda: super_runs("geom.march_max", np.max),
         "geom.march_prim": lambda: ref["geom.march_tris"][..., 10].astype(np.int32),
         "geom.bounds_min": lambda: ref["geom.node_min"][0],
         "geom.bounds_max": lambda: ref["geom.node_max"][0],
@@ -115,7 +124,7 @@ def test_compile_scene_leaves_equal(name):
     ref = jax_scene_arrays(jscene)
     scene = compile_scene(tcfg, device="cpu")
     got = torch_scene_arrays(scene)
-    assert len(got) == 45
+    assert len(got) == 47
     for key, value in got.items():
         want = reference_leaf(ref, key)
         assert value.dtype == want.dtype, key
