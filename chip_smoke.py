@@ -10,7 +10,10 @@ Phases, one short line each:
                  hit and any-hit, on (a) 16384 random triangles x 65536
                  random rays and (b) the Cornell box's triangles against a
                  512x512 frame's first tile of camera rays and first-bounce
-                 rays; K1's times and roofline bound at (a)
+                 rays; K1's times and roofline bound at (a), beside its time
+                 before the redesign; then every kernel shape (slices per
+                 ray x rays per thread) checked on 65536 random rays at 64
+                 to 16384 random triangles and on (b)'s bounce rays
   render-cornell the main path: Renderer.render of the built-in Cornell box at
                  512x512, 16 spp, depth 8 (64k-ray tiles, spp chunks of 8),
                  timed after one warm-up frame; then a 64x64 card render
@@ -29,7 +32,9 @@ Phases, one short line each:
   kernel-K3K4    the corridor kernel against its plain version (slots and
                  overflow equal) and the pair sweep against its plain version
                  on the pairs scene's camera and bounce rays, then the whole
-                 pair route against the plain per-lane march; times and bounds
+                 pair route against the plain per-lane march; times and bounds,
+                 K4's time before the redesign, and the most distinct chunks
+                 the pairs of one warp (and of one 512-pair block) name
   render-march   Renderer.render of the 51,236-triangle march scene at
                  512x512, 16 spp, depth 8 after a warm-up frame, through K2;
                  then a 64x64 card render held against the CPU render
@@ -37,6 +42,13 @@ Phases, one short line each:
                  and K4 (and K2 for corridors longer than K)
   pairs-by-march the pairs scene's frame again with MCPT_TRAVERSAL=march,
                  beside render-pairs' wall: which route is faster on the card
+  device-times   each kernel's device time per launch at its timed input,
+                 and K1's shape sweep: every shape's device time at each
+                 table size of kernel-K1 (the evidence for shape_for)
+Kernel times ("ms") are the median time between CUDA events around one
+wrapper call (cuda_ms), which also counts the wrapper's host time; each
+kernel's device time per launch from torch.profiler (kernel_ms) is taken
+last, after every frame, and printed beside it ("device_ms").
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero;
 without a CUDA device the script exits 1 before printing any result.
@@ -138,6 +150,50 @@ def cuda_ms(fn, reps, warmup=2):
     return float(np.median(times))
 
 
+def kernel_ms(fn, kernel, reps=20, warmup=2):
+    """Median device milliseconds of one launch of the CUDA kernel whose
+    name holds `kernel`, over `reps` calls of `fn`, as torch.profiler
+    (CUPTI) records them: the kernel's own time.  An event pair around one
+    call (cuda_ms) also counts the wrapper's host time before the launch,
+    tens of microseconds of checks and allocations, which is longer than
+    some kernels here.  The profiler may drop some launches of a session;
+    a session that keeps fewer than half is repeated, twice at most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(us) > reps:
+            raise AssertionError(f"kernel_ms: {len(us)} launches of {kernel} "
+                                 f"recorded in {reps} calls")
+        if 2 * len(us) >= reps:
+            return float(np.median(us)) / 1e3
+    raise AssertionError(f"kernel_ms: the profiler kept {len(us)} of {reps} "
+                         f"launches of {kernel}")
+
+
+#: device-time measurements queued by the kernel phases, taken by
+#: phase_device_times after every frame is timed: the frames that this
+#: script timed after torch.profiler sessions were up to 1.8x slower than
+#: the same frames timed without them (PERF.md)
+_device_jobs = []
+
+
+def time_on_device(record, field, fn, kernel, reps=20):
+    """Queue kernel_ms(fn, kernel, reps) into record[field]."""
+    _device_jobs.append((record, field, fn, kernel, reps))
+
+
 #: bytes of one hit record written: t, prim, v, w (4 each), inside, valid
 HIT_BYTES = 4 + 4 + 4 + 4 + 1 + 1
 #: bytes of a triangle row that a closest-hit test needs: p0, e1, e2 (an
@@ -234,18 +290,33 @@ def phase_build():
     say(f"build: {'built' if info['built'] else 'cached'} "
         f"{os.path.relpath(info['path'], HERE)} in {info['seconds']:.2f} s")
     for line in info["ptxas"]:
-        say(f"build: {line.split('ptxas info    :')[-1].strip()}")
+        say(f"build: {line}")
     build.library()
 
 
-def _k1_pair(o, d, t_min, t_max, tris, label):
-    """Closest and any-hit through K1 and the plain version; checks both."""
+#: K1's and K4's times on the card before their redesign, between CUDA
+#: events around one call (commit 4eb0709; NVIDIA H100 80GB HBM3, 700 W):
+#: K1 at 65536 random rays x 16384 triangles, K4 on the pairs scene's
+#: bounce pairs.  Printed beside this run's times, not in the kernels line
+K1_BEFORE_MS = 3.757
+K4_BEFORE_MS = 1.674
+#: table sizes of K1's shape sweep besides (a)'s 16384: the first rows of
+#: (a)'s table, against (a)'s rays
+K1_SWEEP_SIZES = (64, 128, 256, 1024, 4096)
+
+
+def _k1_pair(o, d, t_min, t_max, tris, label, refs=None, shape=None):
+    """Closest and any-hit through K1 (at `shape`, else the wrapper's)
+    and the plain version (or `refs`, its two results); checks both and
+    returns the two same_hits results."""
     from mcpt_tpu_torch.ops import dense_sweep as ds
 
     errs = []
     for any_hit in (False, True):
-        got = ds.dense_sweep(o, d, t_min, t_max, tris, any_hit=any_hit)
-        ref = ds.dense_sweep_plain(o, d, t_min, t_max, tris, any_hit=any_hit)
+        got = ds.dense_sweep(o, d, t_min, t_max, tris, any_hit=any_hit,
+                             shape=shape)
+        ref = (refs[any_hit] if refs is not None else
+               ds.dense_sweep_plain(o, d, t_min, t_max, tris, any_hit=any_hit))
         # K1's any-hit mode keeps the nearest opaque hit: every output
         # is compared in both modes
         errs.append(same_hits(got, ref, o, d, tris, t_min,
@@ -284,9 +355,11 @@ def phase_kernel(dev):
     live = int((t_max > t_min).sum())
     nbytes = n * (3 + 3 + 1 + 1) * 4 + p * ROW_BYTES + n * HIT_BYTES
     bound_ms, bound_by = bound(K1_OPS_PER_PAIR * live * p, nbytes)
-    say(f"kernel-K1(a): {ms:.3f} ms (plain {plain_ms:.3f} ms), bound "
-        f"{bound_ms:.3f} ms by {bound_by} at {peak_fp32()[0] / 1e12:.1f} "
-        f"TFLOP/s fp32 peak ({peak_fp32()[1]})")
+    say(f"kernel-K1(a): {ms:.3f} ms between events around one call at "
+        f"shape {ds.shape_for(p)}; plain {plain_ms:.3f} ms; bound "
+        f"{bound_ms:.3f} ms by {bound_by} at "
+        f"{peak_fp32()[0] / 1e12:.1f} TFLOP/s fp32 peak ({peak_fp32()[1]}); "
+        f"before the redesign {K1_BEFORE_MS} ms between events")
 
     # (b) the main path's shapes: the Cornell box's triangles against the
     # first 64k-ray tile of a 512x512 frame and its first-bounce rays
@@ -315,8 +388,10 @@ def phase_kernel(dev):
     plain_b = cuda_ms(
         lambda: ds.dense_sweep_plain(o_b, d_b, lo, hi_b, tris_b), reps=5)
     say(f"kernel-K1(b): cornell {TILE}x{tris_b.shape[0]} camera+bounce match "
-        f"plain; bounce sweep {ms_b:.4f} ms (plain {plain_b:.3f} ms)")
-    return {
+        f"plain; bounce sweep {ms_b:.4f} ms between events (plain "
+        f"{plain_b:.3f} ms)")
+
+    rec = {
         "name": "dense_sweep", "route": "cuda",
         "source": "mcpt_tpu_torch/csrc/dense_sweep.cu",
         "replaces": "mcpt_tpu/ops/pallas_dense.py:31",
@@ -325,7 +400,33 @@ def phase_kernel(dev):
         "bound_by": bound_by, "library_ms": None,
         "shape": f"{n} rays x {p} tris",
         "cornell_ms": ms_b, "cornell_plain_ms": plain_b,
+        "sweep_device_ms": {},
     }
+    time_on_device(rec, "device_ms",
+                   lambda: ds.dense_sweep(o, d, t_min, t_max, tris),
+                   "dense_sweep_kernel")
+    time_on_device(rec, "cornell_device_ms",
+                   lambda: ds.dense_sweep(o_b, d_b, lo, hi_b, tris_b),
+                   "dense_sweep_kernel")
+
+    # every kernel shape on (a)'s rays at each sweep size and on (b)'s
+    # bounce rays, each held against the same plain results; their device
+    # times are the evidence for shape_for
+    sets = {f"{q} random": (o, d, t_min, t_max, tris[:q])
+            for q in (*K1_SWEEP_SIZES, p)}
+    sets[f"{tris_b.shape[0]} cornell bounce"] = (o_b, d_b, lo, hi_b, tris_b)
+    for key, args in sets.items():
+        refs = {a: ds.dense_sweep_plain(*args, any_hit=a) for a in (False, True)}
+        row = rec["sweep_device_ms"][key] = {}
+        for shape in ds.SHAPES:
+            _k1_pair(*args, f"K1 {key} shape {shape}", refs, shape)
+            time_on_device(row, f"{shape[0]}x{shape[1]}",
+                           lambda args=args, shape=shape: ds.dense_sweep(
+                               *args, shape=shape),
+                           "dense_sweep_kernel", reps=10)
+    say(f"kernel-K1: every shape {ds.SHAPES} matches plain, closest and any "
+        f"hit, on {n} rays x " + ", ".join(sets) + " triangles")
+    return rec
 
 
 def _counters():
@@ -434,6 +535,9 @@ def phase_render_mesh(dev, smi):
         f"{wall:.3f} s, {rays / wall / 1e6:.2f} Mrays/s on {smi}; K1 "
         f"launches {counts['K1'] - counts['K1_any']} closest + "
         f"{counts['K1_any']} any-hit")
+    if counts["K1"] <= 0:
+        raise AssertionError("render-mesh: K1 not launched")
+    return counts["K1"]
 
 
 def camera_and_bounce(scene, cam, dev, seed=3):
@@ -635,6 +739,7 @@ def phase_kernel_k2(dev):
             f"block unions {block_visits} chunk visits")
         if label == "bounce":
             bounce = (args, bound_ms, bound_by, lm, ls)
+            bounce_sup = supers
         if label in ("camera", "bounce"):
             # the evidence for the default block size: the same input at
             # each size, default knobs otherwise
@@ -654,7 +759,7 @@ def phase_kernel_k2(dev):
     say(f"kernel-K2 bounce: {ms:.4f} ms at the defaults (plain "
         f"{plain_ms:.3f} ms), bound {bound_ms:.4f} ms by {bound_by}; before "
         f"the redesign {K2_BEFORE_MS['bounce']} ms")
-    return {
+    rec = {
         "name": "march_sweep", "route": "cuda",
         "source": "mcpt_tpu_torch/csrc/march_sweep.cu",
         "replaces": "mcpt_tpu/ops/pallas_march.py:128",
@@ -665,6 +770,23 @@ def phase_kernel_k2(dev):
         "ms_by_input_and_setting": {f"{k[0]}/{k[1]}": v
                                     for k, v in times.items()},
     }
+    time_on_device(rec, "device_ms",
+                   lambda: msw.march_sweep(*args, supers=bounce_sup),
+                   "march_kernel")
+    return rec
+
+
+def widest_run(chunk, lm, size):
+    """The most distinct live chunk ids among `size` consecutive pairs
+    (a run that starts at a multiple of `size`), as K4 sees them."""
+    import torch
+
+    pad = -len(chunk) % size
+    c = torch.cat([chunk, chunk.new_full((pad,), lm)]).view(-1, size)
+    c = torch.sort(c, dim=1)[0]
+    new = torch.ones_like(c, dtype=torch.bool)
+    new[:, 1:] = c[:, 1:] != c[:, :-1]
+    return int((new & (c < lm)).sum(dim=1).max())
 
 
 def phase_kernel_k3k4(dev):
@@ -740,22 +862,34 @@ def phase_kernel_k3k4(dev):
                 + int(torch.unique(live_c).numel()) * ls * ROW_BYTES
                 + k4_hits * 4 + m * HIT_BYTES)
     k4_bound, k4_by = bound(K1_OPS_PER_PAIR * live_pairs * ls, k4_bytes)
-    say(f"kernel-K3 bounce: {k3_ms:.3f} ms (plain {k3_plain:.3f} ms), bound "
+    say(f"kernel-K3 bounce: {k3_ms:.4f} ms between events around one call "
+        f"(plain {k3_plain:.3f} ms), bound "
         f"{k3_bound:.4f} ms by {k3_by} ({live} live of {n} rays x {lm} "
         f"slab tests)")
-    say(f"kernel-K4 bounce: {k4_ms:.3f} ms (plain {k4_plain:.3f} ms), bound "
+    say(f"kernel-K4 bounce: {k4_ms:.4f} ms between events around one call "
+        f"(plain {k4_plain:.3f} ms), bound "
         f"{k4_bound:.4f} ms by {k4_by} ({live_pairs} live of {m} pairs x "
-        f"{ls} triangles)")
+        f"{ls} triangles); before the redesign {K4_BEFORE_MS} ms between "
+        f"events")
+    widest = {size: widest_run(pairs[4], lm, size) for size in (32, 512)}
+    say(f"kernel-K4 bounce: the widest warp's 32 pairs name {widest[32]} "
+        f"distinct chunks, the widest 512-pair block's {widest[512]}")
     common = {"route": "cuda", "source": "mcpt_tpu_torch/csrc/pair_sweep.cu",
               "launches": None, "library_ms": None}
-    return (
-        dict(common, name="corridor", replaces="mcpt_tpu/ops/pallas_pairs.py:227",
-             max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by,
-             shape=f"{n} bounce rays x {lm} chunks, K={k}"),
-        dict(common, name="pair_sweep", replaces="mcpt_tpu/ops/pallas_pairs.py:84",
-             max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bound, bound_by=k4_by,
-             shape=f"{live_pairs} live of {m} pairs x {ls} triangles"),
-    )
+    k3 = dict(common, name="corridor", replaces="mcpt_tpu/ops/pallas_pairs.py:227",
+             max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain,
+             bound_ms=k3_bound, bound_by=k3_by,
+             shape=f"{n} bounce rays x {lm} chunks, K={k}")
+    k4 = dict(common, name="pair_sweep", replaces="mcpt_tpu/ops/pallas_pairs.py:84",
+             max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain,
+             bound_ms=k4_bound, bound_by=k4_by,
+             shape=f"{live_pairs} live of {m} pairs x {ls} triangles",
+             widest_warp_chunks=widest[32])
+    time_on_device(k3, "device_ms", lambda: psw.corridor(*cargs),
+                   "corridor_kernel")
+    time_on_device(k4, "device_ms", lambda: psw.pair_sweep(*pargs),
+                   "pair_kernel")
+    return k3, k4
 
 
 def phase_render_route(dev, smi, label, make_config, route, kernels,
@@ -807,6 +941,25 @@ def phase_pairs_by_march(dev, smi, pairs_wall):
         f"the {faster} route is faster here")
 
 
+def phase_device_times(k1, k2, k3, k4):
+    """The queued device times (time_on_device), after every frame."""
+    for record, field, fn, kernel, reps in _device_jobs:
+        record[field] = kernel_ms(fn, kernel, reps=reps)
+    for rec, label in ((k1, "K1(a)"), (k2, "K2 bounce"), (k3, "K3 bounce"),
+                       (k4, "K4 bounce")):
+        say(f"device-times: {label} {rec['device_ms']:.4f} ms of device time "
+            f"a launch (between events {rec['ms']:.4f} ms)")
+    say(f"device-times: K1(b) cornell bounce {k1['cornell_device_ms']:.4f} ms "
+        f"of device time a launch (between events {k1['cornell_ms']:.4f} ms)")
+    from mcpt_tpu_torch.ops import dense_sweep as ds
+
+    for key, row in k1["sweep_device_ms"].items():
+        say(f"device-times: K1 shape sweep, {key} triangles (slices x rays "
+            f"per thread: ms of device time a launch; the wrapper takes "
+            f"{ds.shape_for(int(key.split()[0]))}): "
+            + ", ".join(f"{k}: {v:.4f}" for k, v in row.items()))
+
+
 def main():
     signal.signal(signal.SIGALRM, _watchdog)
     signal.alarm(WATCHDOG_S)
@@ -822,9 +975,13 @@ def main():
     _phase[0] = "kernel-K1"
     k1 = phase_kernel(dev)
     _phase[0] = "render-cornell"
-    k1["launches"] = phase_render_cornell(dev, smi)
+    n_cornell = phase_render_cornell(dev, smi)
     _phase[0] = "render-mesh"
-    phase_render_mesh(dev, smi)
+    n_mesh = phase_render_mesh(dev, smi)
+    # K1's time is taken at render-mesh's triangle count (16384), and
+    # cornell_ms at render-cornell's: each beside its own path's launches
+    k1["launches"] = n_mesh
+    k1["cornell_launches"] = n_cornell
     _phase[0] = "kernel-K2"
     k2 = phase_kernel_k2(dev)
     _phase[0] = "kernel-K3K4"
@@ -841,6 +998,8 @@ def main():
                                          ("K3", "K4"))
     _phase[0] = "pairs-by-march"
     phase_pairs_by_march(dev, smi, pairs_wall)
+    _phase[0] = "device-times"
+    phase_device_times(k1, k2, k3, k4)
     k2["launches"] = c_m["K2"] + c_p["K2"]
     k2["launches_by_path"] = {"render-march": c_m["K2"],
                               "render-pairs": c_p["K2"]}

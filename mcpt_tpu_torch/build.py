@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,8 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures: name -> argtypes (every pointer and the stream as void*)
 SIGNATURES = {
-    "mcpt_dense_sweep": [_P, _P, _P, _P, _P, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P, _P],
+    "mcpt_dense_sweep": [_P] * 5 + [_I] * 4 + [_P] * 7,
     "mcpt_march_sweep": [_P] * 10 + [_I] * 7 + [_P] * 7,
     "mcpt_march_smem_bytes": [_I] * 5,
     "mcpt_corridor": [_P] * 6 + [_I] * 3 + [_P] * 3,
@@ -73,11 +73,30 @@ def library_path() -> Path:
     return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
 
 
+def _ptxas_report(err: str) -> list[str]:
+    """ptxas -v's registers, shared memory and spills, one line a kernel,
+    named as `kernel<template args>`."""
+    out, name = [], "?"
+    for ln in err.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)(I((?:L[ib]\d+E)+)E)?", m.group(1))
+            name = k.group(1) if k else m.group(1)
+            if k and k.group(3):
+                name += "<" + ",".join(re.findall(r"L[ib](\d+)E", k.group(3))) + ">"
+        elif "ptxas info" in ln and "Used" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}")
+        elif "spill" in ln and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln):
+            out.append(f"{name}: {ln.strip()}")
+    return out
+
+
 def build() -> dict:
     """Compile the kernels unless an up-to-date library exists.
 
     Returns {"path", "seconds", "built", "ptxas"} — `ptxas` holds the
-    assembler's register/shared-memory report lines of this build."""
+    assembler's register, shared-memory and spill report of this build,
+    one line a kernel (_ptxas_report)."""
     out = library_path()
     if out.exists():
         return {"path": str(out), "seconds": 0.0, "built": False, "ptxas": []}
@@ -94,8 +113,7 @@ def build() -> dict:
     ptxas, failed = [], None
     for cmd, obj, proc in jobs:
         _, err = proc.communicate()
-        ptxas += [ln.strip() for ln in err.splitlines()
-                  if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
+        ptxas += _ptxas_report(err)
         if proc.returncode != 0 and failed is None:
             failed = (cmd, proc.returncode, err)
     objs = [obj for _, obj, _ in jobs]

@@ -19,6 +19,14 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
+// The nine floats a test reads (p0, e1, e2) from a packed row read as
+// three float4; the opaque flag is c.y.
+__device__ __forceinline__ void unpack_row(const float4& a, const float4& b,
+                                           const float4& c, float tri[9]) {
+  tri[0] = a.x, tri[1] = a.y, tri[2] = a.z, tri[3] = a.w;
+  tri[4] = b.x, tri[5] = b.y, tri[6] = b.z, tri[7] = b.w, tri[8] = c.x;
+}
+
 // Reciprocal direction component with |x| < 1e-12 pushed to +-1e-12.
 __device__ __forceinline__ float safe_rcp(float x) {
   return 1.0f / (fabsf(x) < 1e-12f ? (x < 0.f ? -1e-12f : 1e-12f) : x);

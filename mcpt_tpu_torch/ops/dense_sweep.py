@@ -24,6 +24,20 @@ from mcpt_tpu_torch.ops.intersect import intersect_triangle
 #: triangles per step of the plain version (as traversal._DENSE_CHUNK)
 PLAIN_CHUNK = 512
 
+#: the kernel's shapes on the card: (slices per ray, rays per thread).  The
+#: C ABI takes one as an int, 10 * slices + rays; chip_smoke.py checks and
+#: times each on 65536 rays at 64 to 16384 triangles (PERF.md)
+SHAPES = tuple((s, p) for s in (1, 2, 4, 8) for p in (1, 2))
+
+
+def shape_for(p: int) -> tuple[int, int]:
+    """The kernel shape for a table of p triangles, as chip_smoke's sweep
+    measured it on the card (H100): 8 slices x 2 rays a thread from 256
+    triangles up (fastest at 1024-16384, within 2% of the fastest at 256),
+    2 slices x 1 ray below (within 1% of the fastest at 64 and 128)."""
+    return (8, 2) if p >= 256 else (2, 1)
+
+
 #: kernel launches made by `dense_sweep` (CUDA tensors only), and how
 #: many of them were in any-hit mode
 launches = 0
@@ -87,8 +101,11 @@ def _check(name, x, shape, dtype, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def dense_sweep(o, d, t_min, t_max, tris, any_hit: bool = False) -> GeomHit:
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
+def dense_sweep(o, d, t_min, t_max, tris, any_hit: bool = False,
+                shape: tuple[int, int] | None = None) -> GeomHit:
+    """K1 on CUDA tensors, its plain version on CPU tensors.  `shape`
+    (slices, rays per thread; one of SHAPES, by default shape_for(P))
+    changes no output."""
     if o.device.type == "cpu":
         return dense_sweep_plain(o, d, t_min, t_max, tris, any_hit)
     if o.device.type != "cuda":
@@ -102,6 +119,12 @@ def dense_sweep(o, d, t_min, t_max, tris, any_hit: bool = False) -> GeomHit:
     _check("tris", tris, (p, 12), torch.float32, dev)
     if p >= 2**31 // 12:
         raise ValueError(f"dense_sweep: {p} triangles overflow int32 indexing")
+    if tris.data_ptr() % 16:
+        raise ValueError("dense_sweep: tris must be 16-byte aligned (rows are "
+                         "read as float4)")
+    shape = shape or shape_for(p)
+    if shape not in SHAPES:
+        raise ValueError(f"dense_sweep: shape {shape} not in {SHAPES}")
 
     from mcpt_tpu_torch.build import library
 
@@ -116,7 +139,7 @@ def dense_sweep(o, d, t_min, t_max, tris, any_hit: bool = False) -> GeomHit:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mcpt_dense_sweep(
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-            tris.data_ptr(), n, p, int(any_hit),
+            tris.data_ptr(), n, p, int(any_hit), 10 * shape[0] + shape[1],
             t.data_ptr(), prim.data_ptr(), v.data_ptr(), w.data_ptr(),
             inside.data_ptr(), valid.data_ptr(), stream,
         )

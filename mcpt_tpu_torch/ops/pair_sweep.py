@@ -12,8 +12,8 @@ Both kernels are CUDA C++ (csrc/pair_sweep.cu); `corridor` and
 * K4, pair sweep: per (ray, chunk) pair, the nearest hit in
   [t_min, t_max) among that chunk's triangles only (in any-hit mode the
   nearest opaque one), lowest index first among equal t.  Pairs come
-  sorted by chunk id so that a block's pairs share few chunks; dead
-  pairs carry chunk = Lm and do no work.
+  sorted by chunk id so that a warp's 32 pairs share few chunks; dead
+  pairs carry chunk = Lm and do no work.  Any chunk size works.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 
 from mcpt_tpu_torch.ops.dense_sweep import GeomHit, _check
 from mcpt_tpu_torch.ops.intersect import intersect_triangle
-from mcpt_tpu_torch.ops.march_sweep import MAX_SMEM, chunk_entry
+from mcpt_tpu_torch.ops.march_sweep import chunk_entry
 
 #: kernel launches (CUDA tensors only)
 corridor_launches = 0
@@ -47,8 +47,8 @@ def pair_k() -> int:
 
 
 def pair_block() -> int:
-    """Pairs per K4 block (MCPT_PAIR_BLOCK, default 512, rounded up to a
-    multiple of 128 as the reference rounds it, at most 1024 threads)."""
+    """Pairs (threads) per K4 block (MCPT_PAIR_BLOCK, default 512, rounded
+    up to a multiple of 128 as the reference rounds it, at most 1024)."""
     raw = os.environ.get("MCPT_PAIR_BLOCK")
     r = int(raw) if raw is not None else 512
     return min(1024, max(128, -(-r // 128) * 128))
@@ -163,9 +163,11 @@ def pair_sweep(o, d, t_min, t_max, chunk, tris, prim,
         _check(name, x, shape, torch.float32, dev)
     _check("chunk", chunk, (m,), torch.int32, dev)
     _check("prim", prim, (lm, ls), torch.int32, dev)
-    if 4 * ls * 13 > MAX_SMEM:  # one chunk's rows and prim ids
-        raise ValueError(f"pair_sweep: chunks of {ls} triangles exceed a "
-                         "block's shared memory")
+    if ls < 1:
+        raise ValueError("pair_sweep: chunks must hold at least one triangle")
+    if tris.data_ptr() % 16:
+        raise ValueError("pair_sweep: tris must be 16-byte aligned (rows are "
+                         "read as float4)")
     if lm * ls >= 2**31 // 12:
         raise ValueError("pair_sweep: the chunk pack overflows int32 indexing")
 

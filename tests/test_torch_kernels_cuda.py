@@ -48,6 +48,47 @@ def test_dense_sweep_kernel_bit_equal_to_plain(n_tris, any_hit):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("shape", ds.SHAPES)
+@pytest.mark.parametrize("case", ["p16384", "ragged", "dead"])
+def test_dense_sweep_kernel_shapes_bit_equal(case, shape, any_hit):
+    """Every kernel shape (slices per ray x rays per thread) against the
+    plain version, every output bit-equal: at p = 16384; at p = 1001 and
+    n = 5003, multiples of no slice tile and of no block; with all lanes
+    dead.  Exact duplicates of rows 0-29 sit 32 and 257 rows after them,
+    so that ties fall in other slices of one tile and in other tiles."""
+    dev = _cuda()
+    p, n = {"p16384": (16384, 4096), "ragged": (1001, 5003),
+            "dead": (1001, 777)}[case]
+    tris = random_tris(p, seed=35, spread=1.5)
+    for gap in (32, 257):
+        tris[gap:gap + 30] = tris[:30]
+    o, d = random_rays(n, seed=36, spread=3.0)
+    t_max = np.full(n, 3.4e38, np.float32)
+    t_max[1::3] = np.random.default_rng(37).uniform(1.0, 8.0, n)[1::3]
+    t_max[::9] = 0.0
+    if case == "dead":
+        t_max[:] = 0.0
+    args = (torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev),
+            torch.full((n,), 1e-4, device=dev),
+            torch.as_tensor(t_max, device=dev),
+            torch.as_tensor(tris, device=dev))
+    before = ds.launches
+    got = ds.dense_sweep(*args, any_hit=any_hit, shape=shape)
+    torch.cuda.synchronize()
+    assert ds.launches == before + 1
+    ref = ds.dense_sweep_plain(*args, any_hit=any_hit)
+    assert bool(ref.valid.any()) == (case != "dead")
+    for name in ("valid", "inside", "prim", "t", "v", "w"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    if case != "dead":  # ties go to the original, the lower index
+        prim = ref.prim[ref.valid]
+        assert bool((prim < 30).any())
+        assert not bool((((prim >= 32) & (prim < 62))
+                         | ((prim >= 257) & (prim < 287))).any())
+
+
+@pytest.mark.cuda
 def test_dense_sweep_wrapper_checks_its_inputs():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -61,6 +102,10 @@ def test_dense_sweep_wrapper_checks_its_inputs():
         ds.dense_sweep(o, o.t().contiguous().t(), lo, lo, tris)
     with pytest.raises(ValueError):
         ds.dense_sweep(o, o, lo, lo, tris[:, :9].contiguous())
+    with pytest.raises(ValueError):  # rows not 16-byte aligned
+        ds.dense_sweep(o, o, lo, lo, torch.zeros(5 * 12 + 1, device=dev)[1:].view(5, 12))
+    with pytest.raises(ValueError):
+        ds.dense_sweep(o, o, lo, lo, tris, shape=(3, 1))
 
 
 def _cuda():
@@ -282,6 +327,107 @@ def test_pair_sweep_kernel_bit_equal_to_plain(monkeypatch, shuffle, any_hit):
     assert bool(ref.valid.any())
     for name in ("valid", "inside", "prim", "t", "v", "w"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+def pair_case(kind, ls, dev, m=2000, lm=300, seed=51):
+    """K4's inputs (o, d, t_min, t_max, chunk, tris, prim) built directly:
+    lm chunks of ls triangles clustered around each chunk's centre, and
+    m pairs sorted by chunk, each live pair's ray aimed at a triangle of
+    its chunk from 2.5 units away, from either side and near its normal,
+    so that it crosses a few more; every
+    third t_max cut short, every ninth live pair dead by t_max = 0, and a
+    dead tail (chunk = lm).  Kinds:
+      sparse  every live pair names its own chunk
+      run     one chunk's run longer than two blocks of 512 pairs
+      dup     rows 0..ls/4 of every chunk copied ls/2 + 1 rows on (exact
+              ties, tested by other lanes), rays aimed at the originals
+      shuffle the run's pairs in random order
+      dead    every pair dead (chunk = lm)"""
+    r = np.random.default_rng(seed)
+    centre = r.uniform(-4.0, 4.0, size=(lm, 1, 3))
+    tris = random_tris(lm * ls, seed=seed, spread=0.4, size=0.5).reshape(lm, ls, 12)
+    tris[..., 0:3] += centre
+    if kind == "dup":
+        q = max(1, ls // 4)
+        tris[:, ls // 2 + 1:ls // 2 + 1 + q] = tris[:, :q]
+    prim = r.permutation(lm * ls).astype(np.int32).reshape(lm, ls)
+    tris[..., 10] = prim
+    n_live = {"sparse": min(lm, m // 2), "run": m * 3 // 4, "dup": m * 3 // 4,
+              "shuffle": m * 3 // 4, "dead": 0}[kind]
+    if kind == "sparse":
+        chunk = np.sort(r.choice(lm, size=n_live, replace=False))
+    else:
+        chunk = np.sort(r.integers(0, lm, size=n_live))
+        if kind in ("run", "shuffle"):
+            chunk[100:100 + 1300] = chunk[100]
+            chunk = np.sort(chunk)
+    chunk = np.concatenate([chunk, np.full(m - n_live, lm)]).astype(np.int32)
+    live = chunk < lm
+    aim = r.integers(0, max(1, ls // 4) if kind == "dup" else ls, size=m)
+    rows = tris[np.minimum(chunk, lm - 1), aim]
+    target = rows[:, 0:3] + (rows[:, 3:6] + rows[:, 6:9]) / 3.0
+    # from either side, within ~27 degrees of the target's normal
+    nrm = np.cross(rows[:, 3:6], rows[:, 6:9])
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    d = (nrm * r.choice([-1.0, 1.0], size=(m, 1))
+         + 0.3 * r.uniform(-1.0, 1.0, size=(m, 3)))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = (target - 2.5 * d).astype(np.float32)
+    t_max = np.full(m, 3.4e38, np.float32)
+    t_max[1::3] = r.uniform(1.5, 3.5, m)[1::3]
+    t_max[np.flatnonzero(live)[::9]] = 0.0
+    t_max[~live] = 0.0
+    if kind == "shuffle":
+        perm = r.permutation(m)
+        o, d, t_max, chunk = o[perm], d[perm], t_max[perm], chunk[perm]
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
+    return (t(o), t(d.astype(np.float32)), t(np.full(m, 1e-4, np.float32)),
+            t(t_max), t(chunk), t(tris), t(prim))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("ls", [32, 64, 128, 40, 200])
+@pytest.mark.parametrize("kind", ["sparse", "run", "dup", "shuffle", "dead"])
+def test_pair_sweep_kernel_cases_bit_equal(kind, ls, any_hit):
+    """K4 against its plain version, every output bit-equal, on the pair
+    inputs K4's warps find hard (pair_case): a sparse tail, a chunk run
+    longer than two blocks, ties across lanes, unsorted pairs, all dead;
+    at chunk sizes of 32, 64 and 128 and two that are not multiples of 32."""
+    from mcpt_tpu_torch.ops import pair_sweep as psw
+
+    dev = _cuda()
+    args = pair_case(kind, ls, dev)
+    before = psw.pair_launches
+    got = psw.pair_sweep(*args, any_hit)
+    torch.cuda.synchronize()
+    assert psw.pair_launches == before + 1
+    ref = psw.pair_sweep_plain(*args, any_hit)
+    assert bool(ref.valid.any()) == (kind != "dead")
+    for name in ("valid", "inside", "prim", "t", "v", "w"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    if kind == "dup":  # the ties went to the originals
+        prim = args[6]
+        q = max(1, ls // 4)
+        copies = prim[:, ls // 2 + 1:ls // 2 + 1 + q]
+        assert not bool(torch.isin(ref.prim[ref.valid], copies).any())
+        assert bool(torch.isin(ref.prim[ref.valid], prim[:, :q]).any())
+
+
+@pytest.mark.cuda
+def test_pair_sweep_wrapper_checks_its_inputs():
+    from mcpt_tpu_torch.ops import pair_sweep as psw
+
+    dev = _cuda()
+    o, d, lo, hi, chunk, tris, prim = pair_case("sparse", 32, dev, m=64, lm=4)
+    with pytest.raises(TypeError):
+        psw.pair_sweep(o, d, lo, hi, chunk.long(), tris, prim)
+    with pytest.raises(ValueError):  # rows not 16-byte aligned
+        flat = torch.zeros(tris.numel() + 1, device=dev)[1:]
+        psw.pair_sweep(o, d, lo, hi, chunk, flat.view(tris.shape), prim)
+    with pytest.raises(ValueError):
+        psw.pair_sweep(o, d, lo, hi, chunk, tris[:, :0].contiguous(),
+                       prim[:, :0].contiguous())
 
 
 @pytest.mark.cuda

@@ -16,11 +16,12 @@ import pytest
 import torch
 
 import mcpt_tpu.ops.traversal as JT
-from mcpt_tpu.ops.pallas_pairs import CORRIDOR_TILE, corridor_sweep
+from mcpt_tpu.ops.pallas_pairs import CORRIDOR_TILE, corridor_sweep, pair_sweep
 from mcpt_tpu_torch.ops import march_sweep as msw
 from mcpt_tpu_torch.ops import pair_sweep as psw
 from mcpt_tpu_torch.ops import traversal as TT
-from tests.test_torch_dense_sweep import _assert_same_hits
+from tests.test_torch_dense_sweep import ATOL, RTOL, _assert_same_hits
+from tests.test_torch_kernels_cuda import pair_case
 from tests.test_torch_march import _rays, _soup
 
 
@@ -72,6 +73,52 @@ def test_corridor_plain_equals_pallas_interpret(monkeypatch, k):
     assert bool(over.any()) and not bool(over.all())
     lm = tg.n_march_leaves
     assert not bool((slots[::6] < lm).any())  # dead rays have no corridor
+
+
+def _reference_pair_sweep(args, any_hit, block=128):
+    """The reference's Pallas pair_sweep (interpret mode) on K4's inputs,
+    in the [G, 16, R] layout its wrapper builds (traversal.py:1002-1019;
+    padding pairs dead), the pack's columns as its rows."""
+    o, d, lo, hi, chunk, tris, _ = (x.numpy() for x in args)
+    m = len(o)
+    lm, ls = tris.shape[:2]
+    g = -(-m // block)
+    rows = np.zeros((16, g * block), np.float32)
+    rows[5] = 1.0
+    rows[8] = lm
+    rows[0:3, :m], rows[3:6, :m] = o.T, d.T
+    rows[6, :m], rows[7, :m], rows[8, :m] = lo, hi, chunk
+    rays = rows.reshape(16, g, block).swapaxes(0, 1)
+    pack = np.zeros((lm, 16, ls), np.float32)
+    pack[:, :12] = tris.transpose(0, 2, 1)
+    out = pair_sweep(jnp.asarray(rays), jnp.asarray(pack), any_hit=any_hit,
+                     interpret=True)
+    t, prim, v, w, flags = (np.asarray(x).reshape(-1)[:m] for x in out)
+    return t, prim, v, w, (flags.astype(np.int32) & 1) > 0, flags >= 2
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kind", ["sparse", "dup"])
+def test_pair_sweep_plain_equals_pallas_interpret(kind, any_hit):
+    """The oracle of K4's card tests (pair_sweep_plain) against the
+    reference's Pallas pair kernel in interpret mode, on two of those
+    tests' inputs at a small size: a sparse tail (every live pair its own
+    chunk) and exact duplicate triangles in every chunk.  valid, inside
+    and prim equal (the ties go to the lower index on both sides); t, v,
+    w within rtol 1e-5, atol 1e-5 (XLA may contract multiply-adds)."""
+    args = pair_case(kind, 32, torch.device("cpu"), m=384, lm=160)
+    got = psw.pair_sweep_plain(*args, any_hit=any_hit)
+    t, prim, v, w, inside, valid = _reference_pair_sweep(args, any_hit)
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    assert valid.sum() > 50
+    np.testing.assert_array_equal(got.prim.numpy()[valid], prim[valid])
+    np.testing.assert_array_equal(got.inside.numpy()[valid], inside[valid])
+    for name, ref in (("t", t), ("v", v), ("w", w)):
+        np.testing.assert_allclose(getattr(got, name).numpy()[valid],
+                                   ref[valid], rtol=RTOL, atol=ATOL,
+                                   err_msg=name)
+    np.testing.assert_array_equal(got.t.numpy()[~valid],
+                                  args[3].numpy()[~valid])
 
 
 def test_pair_sweep_plain_is_order_free():
