@@ -32,9 +32,12 @@ Phases, one short line each:
   kernel-K3K4    the corridor kernel against its plain version (slots and
                  overflow equal) and the pair sweep against its plain version
                  on the pairs scene's camera and bounce rays, then the whole
-                 pair route against the plain per-lane march; times and bounds,
-                 K4's time before the redesign, and the most distinct chunks
-                 the pairs of one warp (and of one 512-pair block) name
+                 pair route against the plain per-lane march; the corridor
+                 kernel also on the card tests' edge cases (CORRIDOR_CASES)
+                 at K = 1, 2, 8, 14; times and bounds (K3: for the slab tests
+                 it performs and for the full sweep), K3's and K4's times
+                 before the redesign, and the most distinct chunks the pairs
+                 of one warp (and of one 512-pair block) name
   render-march   Renderer.render of the 51,236-triangle march scene at
                  512x512, 16 spp, depth 8 after a warm-up frame, through K2;
                  then a 64x64 card render held against the CPU render
@@ -119,6 +122,103 @@ def random_rays(n, seed=1, spread=6.0):
     d = r.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return o, d
+
+
+def soup_geometry(n_tris, dev, seed=41):
+    """A random soup (random_tris) with exact duplicates (ties) and 70%
+    opaque prims, committed as the renderer commits a mesh."""
+    from mcpt_tpu_torch.scene.geometry import commit_geometry
+
+    tris = random_tris(n_tris, seed=seed)
+    tris[n_tris // 2:n_tris // 2 + n_tris // 10] = tris[:n_tris // 10]
+    verts = np.stack([tris[:, 0:3], tris[:, 0:3] + tris[:, 3:6],
+                      tris[:, 0:3] + tris[:, 6:9]], axis=1)
+    return commit_geometry(verts, None, None, None, np.zeros(n_tris), dev,
+                           tri_opaque=tris[:, 9] > 0.5)
+
+
+def soup_rays(n, dev, seed=42):
+    """random_rays with t_min 1e-4 and t_max the float max, in [1, 8) on
+    every third ray and 0 (dead) on every ninth: (o, d, t_min, t_max)."""
+    import torch
+
+    o, d = random_rays(n, seed=seed)
+    t_max = np.full(n, 3.4e38, np.float32)
+    t_max[1::3] = np.random.default_rng(seed).uniform(1.0, 8.0, n)[1::3]
+    t_max[::9] = 0.0  # dead lanes
+    return (torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev),
+            torch.full((n,), 1e-4, device=dev), torch.as_tensor(t_max, device=dev))
+
+
+def corridor_inputs(n, lm, dev, seed=7, dead=False, grid=False):
+    """K3's inputs with its edge cases: lm random chunk boxes (one in ten
+    flat along an axis, every 97th parked at 3e37 as empty chunks are)
+    and n rays from random origins: every 5th axis-parallel (the other
+    two components +-0, so safe_rcp gives +-1e12) with its origin on a
+    face plane of a random box; t_min 1e-4; t_max the float max, on
+    every 3rd ray in [1, 8), below t_min (dead) on every 9th, and equal
+    to t_min on every 11th, whose point at t_min is a box's centre.
+    dead: every ray dead.  grid: box bounds and origins on a grid of
+    0.5, so that faces and origins coincide.  Returns (o, d, t_min,
+    t_max, cmin, cmax) as float32 tensors on dev."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    centre = r.uniform(-4, 4, size=(lm, 3))
+    half = r.uniform(0, 0.5, size=(lm, 3))
+    flat = np.arange(lm) % 10 == 3
+    half[flat, r.integers(0, 3, size=int(flat.sum()))] = 0.0
+    lo, hi = centre - half, centre + half
+    if grid:
+        lo, hi = np.floor(lo * 2) / 2, np.ceil(hi * 2) / 2
+    lo[::97] = hi[::97] = 3e37
+    o = r.uniform(-6, 6, size=(n, 3))
+    d = r.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if grid:
+        o = np.round(o * 2) / 2
+    t_min = np.full(n, 1e-4)
+    t_max = np.full(n, np.finfo(np.float32).max)
+    t_max[1::3] = r.uniform(1.0, 8.0, n)[1::3]
+    box = r.integers(0, lm, size=n)
+    box[box % 97 == 0] = 1  # never a parked box
+    rows = np.arange(n)
+    for i in rows[::5]:
+        a = r.integers(0, 3)
+        d[i] = np.copysign(0.0, r.uniform(-1, 1, size=3))
+        d[i, a] = r.choice([-1.0, 1.0])
+        b = (a + 1) % 3
+        o[i, b] = (lo if r.uniform() < 0.5 else hi)[box[i], b]
+    eq = rows[5::11]
+    t_min[eq] = t_max[eq] = 2.0
+    o[eq] = (lo[box[eq]] + hi[box[eq]]) / 2 - 2.0 * d[eq]
+    t_max[::9] = 0.0
+    if dead:
+        t_max[:] = 0.0
+    return tuple(torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                 device=dev)
+                 for x in (o, d, t_min, t_max, lo, hi))
+
+
+#: K3's edge-case inputs (corridor_case): name -> (rays, chunks, dead);
+#: chunks None = twice the chunks a block stages at a time, plus 37
+CORRIDOR_CASES = {
+    "ragged": (20001, 1001, False),
+    "grid": (20001, 1001, False),
+    "tiled": (20001, None, False),
+    "few": (7, 40, False),
+    "all-dead": (5000, 1001, True),
+}
+
+
+def corridor_case(kind, dev):
+    """The inputs of CORRIDOR_CASES[kind] on dev (corridor_inputs)."""
+    n, lm, dead = CORRIDOR_CASES[kind]
+    if lm is None:
+        from mcpt_tpu_torch.ops.pair_sweep import corridor_tile
+
+        lm = 2 * corridor_tile() + 37
+    return corridor_inputs(n, lm, dev, dead=dead, grid=kind == "grid")
 
 
 # ---------------------------------------------------------------- helpers
@@ -789,6 +889,44 @@ def widest_run(chunk, lm, size):
     return int((new & (c < lm)).sum(dim=1).max())
 
 
+#: K3's time on the card before its redesign, on the pairs scene's
+#: bounce rays (commit faca9ff; NVIDIA H100 80GB HBM3, 700 W): between
+#: CUDA events around one call, and device time a launch.  Printed beside
+#: this run's times, not in the kernels line
+K3_BEFORE_MS = 0.2058
+K3_BEFORE_DEVICE_MS = 0.1644
+
+
+def k3_tests(o, d, lo, hi, cmin, cmax, k):
+    """The slab tests K3 performs on this input, (union tests, chunk
+    tests): each ray with t_max >= t_min tests the unions of every
+    32-union ballot it reaches and the chunks (32, fewer in a partial last
+    union) of every passing union it walks, in index order, until its
+    count of passing chunks passes k."""
+    import torch
+
+    from mcpt_tpu_torch.ops.march_sweep import chunk_entry, super_boxes
+    from mcpt_tpu_torch.ops.pair_sweep import UNION
+
+    lm = cmin.shape[0]
+    live = hi >= lo
+    o, d, lo, hi = o[live], d[live], lo[live], hi[live]
+    umin, umax = super_boxes(cmin, cmax, UNION)
+    nu = umin.shape[0]
+    ok = torch.isfinite(chunk_entry(o, d, lo, hi, cmin, cmax))
+    per = torch.cat([ok, ok.new_zeros((len(o), nu * UNION - lm))], dim=1
+                    ).view(-1, nu, UNION).sum(dim=2)
+    over = per.cumsum(dim=1) > k
+    stop = torch.where(over.any(dim=1), over.int().argmax(dim=1),
+                       torch.full_like(over[:, 0], nu, dtype=torch.long))
+    upass = torch.isfinite(chunk_entry(o, d, lo, hi, umin, umax))
+    walked = upass & (torch.arange(nu, device=o.device)[None] <= stop[:, None])
+    size = torch.full((nu,), UNION, device=o.device)
+    size[-1] = lm - (nu - 1) * UNION
+    union_tests = int(torch.clamp((stop // 32 + 1) * 32, max=nu).sum())
+    return union_tests, int((walked * size).sum())
+
+
 def phase_kernel_k3k4(dev):
     import torch
 
@@ -837,16 +975,37 @@ def phase_kernel_k3k4(dev):
             f"slots equal ({filled} filled, {int(over.sum())} overflow); "
             + "; ".join(line))
 
-    # time and bound on the main path's bounce rays
+    # K3 on the card tests' inputs at every k they take: a SAH soup's
+    # chunks, and the edge cases
+    with knobs({"MCPT_MARCH_LEAF": "16"}):
+        g_s = soup_geometry(6000, dev)
+    cases = {"soup": (*soup_rays(20000, dev), g_s.march_min, g_s.march_max)}
+    cases.update((kind, corridor_case(kind, dev)) for kind in CORRIDOR_CASES)
+    for kind, cargs in cases.items():
+        for kk in (1, 2, 8, psw.MAX_K):
+            slots, over = psw.corridor(*cargs, kk)
+            slots_p, over_p = psw.corridor_plain(*cargs, kk)
+            if not (torch.equal(slots, slots_p) and torch.equal(over, over_p)):
+                raise AssertionError(f"K3 {kind} k={kk}: slots or overflow "
+                                     f"differ")
+    say(f"kernel-K3 card-test inputs: slots and overflow equal at K = 1, 2, "
+        f"8, {psw.MAX_K} on " + ", ".join(
+            f"{kind} ({len(a[0])} rays x {len(a[4])} chunks)"
+            for kind, a in cases.items()))
+
+    # time and bounds on the main path's bounce rays
     o, d, lo, hi = sets[1][1:]
     cargs = (o, d, lo, hi, g.march_min, g.march_max, k)
     k3_ms = cuda_ms(lambda: psw.corridor(*cargs), reps=20)
     k3_plain = cuda_ms(lambda: psw.corridor_plain(*cargs), reps=3, warmup=1)
     n = len(o)
-    live = int((hi > lo).sum())  # a dead ray's corridor is empty untested
-    k3_bound, k3_by = bound(SLAB_OPS * live * lm,
-                            n * 2 * 4 + live * 6 * 4 + lm * 6 * 4
-                            + n * k * 4 + n)
+    live = int((hi > lo).sum())
+    k3_bytes = n * 2 * 4 + live * 6 * 4 + lm * 6 * 4 + n * k * 4 + n
+    # the full sweep: every live ray against every chunk; what K3 does:
+    # its union and chunk tests on this input (k3_tests)
+    full_bound, _ = bound(SLAB_OPS * live * lm, k3_bytes)
+    u_tests, c_tests = k3_tests(*cargs)
+    k3_bound, k3_by = bound(SLAB_OPS * (u_tests + c_tests), k3_bytes)
     _, _, *pairs = pair_inputs(g, o, d, lo, hi, k)
     pargs = (*pairs, g.march_tris, g.march_prim)
     k4_ms = cuda_ms(lambda: psw.pair_sweep(*pargs), reps=20)
@@ -863,9 +1022,10 @@ def phase_kernel_k3k4(dev):
                 + k4_hits * 4 + m * HIT_BYTES)
     k4_bound, k4_by = bound(K1_OPS_PER_PAIR * live_pairs * ls, k4_bytes)
     say(f"kernel-K3 bounce: {k3_ms:.4f} ms between events around one call "
-        f"(plain {k3_plain:.3f} ms), bound "
-        f"{k3_bound:.4f} ms by {k3_by} ({live} live of {n} rays x {lm} "
-        f"slab tests)")
+        f"(plain {k3_plain:.3f} ms); {u_tests} union + {c_tests} chunk slab "
+        f"tests, bound {k3_bound:.4f} ms by {k3_by}; full-sweep bound "
+        f"{full_bound:.4f} ms ({live} live of {n} rays x {lm} chunks); "
+        f"before the redesign {K3_BEFORE_MS} ms between events")
     say(f"kernel-K4 bounce: {k4_ms:.4f} ms between events around one call "
         f"(plain {k4_plain:.3f} ms), bound "
         f"{k4_bound:.4f} ms by {k4_by} ({live_pairs} live of {m} pairs x "
@@ -879,6 +1039,9 @@ def phase_kernel_k3k4(dev):
     k3 = dict(common, name="corridor", replaces="mcpt_tpu/ops/pallas_pairs.py:227",
              max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain,
              bound_ms=k3_bound, bound_by=k3_by,
+             full_sweep_bound_ms=full_bound,
+             slab_tests={"union": u_tests, "chunk": c_tests,
+                         "full_sweep": live * lm},
              shape=f"{n} bounce rays x {lm} chunks, K={k}")
     k4 = dict(common, name="pair_sweep", replaces="mcpt_tpu/ops/pallas_pairs.py:84",
              max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain,
@@ -949,6 +1112,10 @@ def phase_device_times(k1, k2, k3, k4):
                        (k4, "K4 bounce")):
         say(f"device-times: {label} {rec['device_ms']:.4f} ms of device time "
             f"a launch (between events {rec['ms']:.4f} ms)")
+    say(f"device-times: K3 bounce against its bounds: {k3['bound_ms']:.4f} "
+        f"ms for the slab tests it performs, {k3['full_sweep_bound_ms']:.4f} "
+        f"ms for the full sweep; before the redesign "
+        f"{K3_BEFORE_DEVICE_MS} ms of device time a launch")
     say(f"device-times: K1(b) cornell bounce {k1['cornell_device_ms']:.4f} ms "
         f"of device time a launch (between events {k1['cornell_ms']:.4f} ms)")
     from mcpt_tpu_torch.ops import dense_sweep as ds

@@ -46,6 +46,7 @@ SIGNATURES = {
     "mcpt_march_sweep": [_P] * 10 + [_I] * 7 + [_P] * 7,
     "mcpt_march_smem_bytes": [_I] * 5,
     "mcpt_corridor": [_P] * 6 + [_I] * 3 + [_P] * 3,
+    "mcpt_corridor_tile": [],
     "mcpt_pair_sweep": [_P] * 7 + [_I] * 5 + [_P] * 7,
 }
 

@@ -1,5 +1,5 @@
-// Asynchronous 16-byte copies from global to shared memory (cp.async,
-// sm_80 and later), shared by the port's kernels that stage rows.
+// Asynchronous copies from global to shared memory (cp.async, sm_80 and
+// later), shared by the port's kernels that stage rows or boxes.
 #pragma once
 
 namespace mcpt {
@@ -7,6 +7,15 @@ namespace mcpt {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// One float, through L1 (.ca: the 4-byte size has no .cg form); a
+// transposing stage issues all of its copies before it waits.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src)
                : "memory");
 }

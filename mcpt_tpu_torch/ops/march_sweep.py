@@ -197,17 +197,18 @@ def card_group(lib, ls: int, lm: int, block: int, n_sup: int):
     return cg, smem(cg)
 
 
-def super_boxes(cmin, cmax):
-    """Union AABBs of each run of SUPER consecutive chunks (the last run
-    may be partial): [S, 3] min and max, S = ceil(Lm / SUPER).  The SAH
-    order keeps consecutive chunks spatially tight."""
+def super_boxes(cmin, cmax, size: int = SUPER):
+    """Union AABBs of each run of `size` consecutive chunks (the last run
+    may be partial): [S, 3] min and max, S = ceil(Lm / size).  The SAH
+    order keeps consecutive chunks spatially tight.  K3 builds the same
+    unions of 32 chunks in the kernel."""
     lm = cmin.shape[0]
-    n_sup = -(-lm // SUPER)
-    pad = n_sup * SUPER - lm
+    n_sup = -(-lm // size)
+    pad = n_sup * size - lm
 
     def runs(x, fill, reduce):
         x = torch.cat([x, x.new_full((pad, 3), fill)]) if pad else x
-        return reduce(x.view(n_sup, SUPER, 3), dim=1)
+        return reduce(x.view(n_sup, size, 3), dim=1)
 
     return (runs(cmin, float("inf"), torch.amin),
             runs(cmax, float("-inf"), torch.amax))

@@ -8,7 +8,11 @@ Both kernels are CUDA C++ (csrc/pair_sweep.cu); `corridor` and
 
 * K3, corridor: per ray, the first K chunk ids (in index order) whose
   AABB the ray enters within [t_min, t_max], Lm meaning none, and an
-  overflow flag when a (K+1)-th chunk passes.
+  overflow flag when a (K+1)-th chunk passes.  K is at most 14, as in
+  the reference.  A warp takes a ray and tests 32 chunks a step, after
+  a cull by the union box of each 32 consecutive chunks; any chunk
+  count works (past `corridor_tile()` chunks the boxes are staged tile
+  by tile).
 * K4, pair sweep: per (ray, chunk) pair, the nearest hit in
   [t_min, t_max) among that chunk's triangles only (in any-hit mode the
   nearest opaque one), lowest index first among equal t.  Pairs come
@@ -30,8 +34,10 @@ from mcpt_tpu_torch.ops.march_sweep import chunk_entry
 corridor_launches = 0
 pair_launches = 0
 
-#: most corridor slots per ray
-MAX_K = 32
+#: most corridor slots per ray, as the reference's corridor_sweep allows
+MAX_K = 14
+#: chunks per K3 union box: one warp's ballot (csrc/pair_sweep.cu UNION)
+UNION = 32
 
 #: (pair, triangle) tests per step of `pair_sweep_plain`
 PAIR_BATCH = 1 << 22
@@ -68,8 +74,18 @@ def corridor_plain(o, d, t_min, t_max, cmin, cmax, k: int):
     return slots, rank[:, -1] > k
 
 
+def corridor_tile() -> int:
+    """Chunks a K3 block stages at a time (the kernel's own TILE)."""
+    from mcpt_tpu_torch.build import library
+
+    return library().mcpt_corridor_tile()
+
+
 def corridor(o, d, t_min, t_max, cmin, cmax, k: int):
-    """K3 on CUDA tensors, its plain version on CPU tensors."""
+    """K3 on CUDA tensors, its plain version on CPU tensors; k above
+    MAX_K raises ValueError on both."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"corridor: k={k} outside 1..{MAX_K}")
     if o.device.type == "cpu":
         return corridor_plain(o, d, t_min, t_max, cmin, cmax, k)
     if o.device.type != "cuda":
@@ -82,8 +98,6 @@ def corridor(o, d, t_min, t_max, cmin, cmax, k: int):
         ("cmax", cmax, (lm, 3)),
     ):
         _check(name, x, shape, torch.float32, dev)
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"corridor: k={k} outside 1..{MAX_K}")
     if n * k >= 2**31:
         raise ValueError("corridor: slots overflow int32 indexing")
 

@@ -1,12 +1,13 @@
-"""K1's and K4's times on the card by two measures, for any checkout.
+"""K1's, K3's and K4's times on the card by two measures, for any checkout.
 
     python3 mcpt_tpu_torch/tools/kernel_times.py [--root DIR] [--reps 20]
 
 Times the dense sweep (K1) on chip_smoke.py's input (a) (65536 random rays,
-every 16th dead, x 16384 random triangles) and the pair sweep (K4) on the
-pairs scene's first-bounce pairs (chip_smoke.camera_and_bounce, then
-ops/traversal.py::pair_inputs), each through its wrapper in closest-hit
-and in any-hit mode, by two measures: the median time between CUDA events
+every 16th dead, x 16384 random triangles), the corridor (K3) on the pairs
+scene's first-bounce rays (chip_smoke.camera_and_bounce) and the pair
+sweep (K4) on their pairs (ops/traversal.py::pair_inputs), each through
+its wrapper (K1 and K4 in closest-hit and in any-hit mode), by two
+measures: the median time between CUDA events
 around one call (chip_smoke.cuda_ms, which also counts the wrapper's host
 time) and the median device time of one launch (chip_smoke.kernel_ms).
 `--root` imports mcpt_tpu_torch from another checkout (a `git archive` of
@@ -67,9 +68,13 @@ def main(argv=None) -> int:
     scene, cam = cs._scene(cornell_mesh_pairs, dev)
     g = scene.geom
     _, ob, db, lob, hib = cs.camera_and_bounce(scene, cam, dev)[1]
-    _, _, *pairs = pair_inputs(g, ob, db, lob, hib, psw.pair_k())
+    k = psw.pair_k()
+    _, _, *pairs = pair_inputs(g, ob, db, lob, hib, k)
     pargs = (*pairs, g.march_tris, g.march_prim)
-    calls = {}
+    calls = {"K3": (
+        lambda: psw.corridor(ob, db, lob, hib, g.march_min, g.march_max, k),
+        "corridor_kernel", f"{len(ob)} bounce rays x {g.n_march_leaves} "
+        f"chunks, K={k}")}
     for any_hit in (False, True):
         mode = " any-hit" if any_hit else ""
         calls["K1" + mode] = (

@@ -1,14 +1,15 @@
 """Where one frame of the main path spends its time on the card.
 
     python -m mcpt_tpu_torch.tools.profile_frame [--res 512] [--spp 16]
-        [--scene cornell|sphere|march|pairs]
+        [--scene cornell|sphere|march|pairs] [--frames 1]
 
 Renders a built-in scene (scene/builtin.py: the Cornell box, the box with
 the 16200-triangle sphere, or one of the two mesh scenes past
-DENSE_MAX_PRIMS, one per large-scene route) once to warm up and times one
-frame with the host clock.  Then it records one tile-chunk of
-that frame (the first 64k-pixel tile, the first spp chunk: one
-shade_regen call, 1/8 of a 512x512 16-spp frame) under torch.profiler
+DENSE_MAX_PRIMS, one per large-scene route) once to warm up and times
+`--frames` frames with the host clock (their median is the frame wall).
+Then it records one tile-chunk of that frame (the first 64k-pixel tile,
+the first spp chunk: one shade_regen call, 1/8 of a 512x512 16-spp
+frame) under torch.profiler
 (CPU + CUDA activity) and prints the device's busy time, its idle share
 of the same tile-chunk's unprofiled wall time, the number of device
 activities (kernels, copies, sets) and the kernels with the most device
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 import time
 
@@ -36,6 +38,8 @@ def main(argv=None) -> int:
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--scene", default="cornell",
                     choices=("cornell", "sphere", "march", "pairs"))
+    ap.add_argument("--frames", type=int, default=1,
+                    help="frames timed after the warm-up (median reported)")
     args = ap.parse_args(argv)
 
     import torch
@@ -60,11 +64,17 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
 
     frame(0)
-    t0 = time.perf_counter()
-    frame(1)
-    wall = time.perf_counter() - t0
+    walls = []
+    for base in range(1, args.frames + 1):
+        t0 = time.perf_counter()
+        frame(base)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
 
-    print(f"frame wall {wall:.3f} s", flush=True)
+    print(f"frame wall {wall:.3f} s" + (
+        f" (median of {len(walls)}: "
+        + ", ".join(f"{w:.3f}" for w in walls) + ")" if len(walls) > 1 else ""),
+        flush=True)
 
     from mcpt_tpu_torch.integrators.path import shade_regen
 
@@ -112,7 +122,7 @@ def main(argv=None) -> int:
         print(f"  {s * 1e3:9.2f} ms {count:7d}x  {key[:90]}")
     print(json.dumps({
         "device": name, "res": args.res, "spp": args.spp,
-        "scene": args.scene, "wall_s": wall,
+        "scene": args.scene, "wall_s": wall, "walls_s": walls,
         "profiled_tile": tile, "profiled_spp": chunk,
         "tile_chunk_wall_s": chunk_wall, "profiled_wall_s": prof_wall,
         "device_busy_s": busy, "idle_share": 1 - busy / chunk_wall,

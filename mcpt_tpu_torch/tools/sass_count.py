@@ -1,4 +1,4 @@
-"""Instructions per ray-triangle test in the built kernels, read from SASS.
+"""Instructions per ray test in the built kernels, read from SASS.
 
     python -m mcpt_tpu_torch.tools.sass_count [--lib PATH]
 
@@ -10,10 +10,16 @@ multiplies.  Every test of ray_tests.cuh::moller_trumbore
 divides once and its division's fast path has one MUFU.RCP (the slow path
 is a subroutine outside the loop), so the loop's instructions over its
 MUFU.RCP count are the instructions issued per test, loop overhead and
-row loads included.  Prints one line per kernel and, last, one JSON
-object.  `--lib` reads another build of the library instead (another
-checkout's `_build/<hash>/libmcpt_kernels.so`).  Needs the CUDA toolkit
-(nvcc, cuobjdump), not a card.
+row loads included.  For the corridor (K3) it finds the inner step of
+slab tests: of the innermost loops that hold an FMUL, the one with the
+most; a slab test (ray_tests.cuh::chunk_entry) multiplies six times and
+nothing else in K3's loops multiplies, so the loop's instructions over
+its FMUL count / 6 are the instructions a lane issues per slab test (in
+the redesigned K3, per step of the warp over 32 chunks).  Prints one
+line per kernel and, last, one JSON object.  `--lib` reads another build
+of the library instead (another checkout's
+`_build/<hash>/libmcpt_kernels.so`).  Needs the CUDA toolkit (nvcc,
+cuobjdump), not a card.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import sys
 KERNELS = {
     "K1": re.compile(r"dense_sweep_kernel(?:ILi(\d+)ELi(\d+)ELb(\d)E)?"),
     "K4": re.compile(r"pair_kernel(?:ILb(\d)E)?"),
+    "K3": re.compile(r"corridor_kernel"),
 }
 #: fp32 operations that issue on the FMA pipe
 FP32 = ("FADD", "FMUL", "FFMA")
@@ -85,13 +92,11 @@ def parse(lines: list[str]):
     return insns, labels
 
 
-def test_loop(lines: list[str]):
-    """Opcode counts of the loop that runs the tests, or None: among the
-    loops (a backward branch and its target) that hold a MUFU.RCP, the
-    one with the largest share of fp32 adds and multiplies (outer loops
-    add staging and barriers, an epilogue loop global loads and stores)."""
+def loops(lines: list[str]):
+    """[(target, branch address, opcodes)] of every loop: a backward
+    branch and its target."""
     insns, labels = parse(lines)
-    best, best_share = None, -1.0
+    out = []
     for i, (addr, op, text) in enumerate(insns):
         if not op.startswith("BRA"):
             continue
@@ -101,7 +106,19 @@ def test_loop(lines: list[str]):
         target = int(m.group(1), 16) if m.group(1) else labels.get(m.group(2))
         if target is None or target >= addr:
             continue
-        body = [o for a, o, _ in insns[:i + 1] if target <= a <= addr]
+        out.append((target, addr,
+                    [o for a, o, _ in insns[:i + 1] if target <= a <= addr]))
+    return out
+
+
+def test_loop(lines: list[str]):
+    """(opcode counts, tests an iteration) of the loop that runs the
+    ray-triangle tests, or None: among the loops that hold a MUFU.RCP,
+    the one with the largest share of fp32 adds and multiplies (outer
+    loops add staging and barriers, an epilogue loop global loads and
+    stores); one test a MUFU.RCP."""
+    best, best_share = None, -1.0
+    for _, _, body in loops(lines):
         if not any(o.startswith("MUFU.RCP") for o in body):
             continue
         share = sum(o.split(".")[0] in FP32 for o in body) / len(body)
@@ -109,11 +126,27 @@ def test_loop(lines: list[str]):
             best, best_share = body, share
     if best is None:
         return None
-    return collections.Counter(best)
+    counts = collections.Counter(best)
+    return counts, sum(n for o, n in counts.items() if o.startswith("MUFU.RCP"))
 
 
-def report(counts) -> dict:
-    tests = sum(n for o, n in counts.items() if o.startswith("MUFU.RCP"))
+def slab_loop(lines: list[str]):
+    """(opcode counts, tests an iteration) of K3's inner step of slab
+    tests, or None: among the loops that hold an FMUL and hold no other
+    such loop, the one with the most FMULs; one test per six."""
+    found = [(t, a, b) for t, a, b in loops(lines)
+             if any(o.startswith("FMUL") for o in b)]
+    inner = [b for t, a, b in found
+             if not any(t <= t2 and a2 <= a and (t2, a2) != (t, a)
+                        for t2, a2, _ in found)]
+    if not inner:
+        return None
+    fmuls = [sum(o.startswith("FMUL") for o in b) for b in inner]
+    best = inner[fmuls.index(max(fmuls))]
+    return collections.Counter(best), max(fmuls) / 6
+
+
+def report(counts, tests) -> dict:
     total = sum(counts.values())
     fp32 = sum(n for o, n in counts.items() if o.split(".")[0] in FP32)
     ffma = sum(n for o, n in counts.items() if o.split(".")[0] == "FFMA")
@@ -144,13 +177,13 @@ def main(argv=None) -> int:
             label = key
             if key == "K1" and g[0]:
                 label += f" shape {g[0]}x{g[1]}"
-            if g[-1] is not None:
+            if g and g[-1] is not None:
                 label += " any-hit" if g[-1] == "1" else " closest"
-            counts = test_loop(lines)
-            if counts is None:
-                print(f"{label}: no loop with a division found")
+            found = (slab_loop if key == "K3" else test_loop)(lines)
+            if found is None:
+                print(f"{label}: no loop of tests found")
                 continue
-            rep = report(counts)
+            rep = report(*found)
             result[label] = rep
             print(f"{label}: {rep['insns_per_test']:.1f} instructions per "
                   f"test ({rep['loop_insns']} in the loop, "

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_rays, random_tris
+from chip_smoke import (CORRIDOR_CASES, random_rays, random_tris,
+                        soup_geometry, soup_rays)
 from mcpt_tpu_torch.ops import dense_sweep as ds
 
 
@@ -114,27 +115,6 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _soup_geometry(n_tris, dev, seed=41):
-    """A random soup with exact duplicates (ties) and 70% opaque prims."""
-    from mcpt_tpu_torch.scene.geometry import commit_geometry
-
-    tris = random_tris(n_tris, seed=seed)
-    tris[n_tris // 2:n_tris // 2 + n_tris // 10] = tris[:n_tris // 10]
-    verts = np.stack([tris[:, 0:3], tris[:, 0:3] + tris[:, 3:6],
-                      tris[:, 0:3] + tris[:, 6:9]], axis=1)
-    return commit_geometry(verts, None, None, None, np.zeros(n_tris), dev,
-                           tri_opaque=tris[:, 9] > 0.5)
-
-
-def _rays(n, dev, seed=42):
-    o, d = random_rays(n, seed=seed)
-    t_max = np.full(n, 3.4e38, np.float32)
-    t_max[1::3] = np.random.default_rng(seed).uniform(1.0, 8.0, n)[1::3]
-    t_max[::9] = 0.0  # dead lanes
-    return (torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev),
-            torch.full((n,), 1e-4, device=dev), torch.as_tensor(t_max, device=dev))
-
-
 #: K2's knob settings: the group target (one chunk per pick, the default,
 #: a value clamped by shared memory), the super-chunk cull off, the interval
 #: phase A on (with the cull on and off)
@@ -199,8 +179,8 @@ def test_march_sweep_kernel_matches_plain(monkeypatch, n_tris, leaf, block,
     monkeypatch.setenv("MCPT_MARCH_BLOCK", block)
     for k, v in K2_SETTINGS[setting].items():
         monkeypatch.setenv(k, v)
-    g = _soup_geometry(n_tris, dev)
-    o, d, lo, hi = _rays(20000, dev)
+    g = soup_geometry(n_tris, dev)
+    o, d, lo, hi = soup_rays(20000, dev)
     order = march_order(g, o, d, lo, hi)
     args = (o[order], d[order], lo[order], hi[order], g.march_min,
             g.march_max, g.march_tris, g.march_prim)
@@ -241,11 +221,11 @@ def test_march_sweep_kernel_partial_super(monkeypatch, setting):
     monkeypatch.setenv("MCPT_MARCH_LEAF", "16")
     for k, v in K2_SETTINGS[setting].items():
         monkeypatch.setenv(k, v)
-    g = _soup_geometry(8000, dev)
+    g = soup_geometry(8000, dev)
     assert g.n_march_leaves > 300
     g = g._replace(march_tris=g.march_tris[:300], march_prim=g.march_prim[:300],
                    march_min=g.march_min[:300], march_max=g.march_max[:300])
-    o, d, lo, hi = _rays(20000, dev)
+    o, d, lo, hi = soup_rays(20000, dev)
     order = march_order(g, o, d, lo, hi)
     args = (o[order], d[order], lo[order], hi[order], g.march_min,
             g.march_max, g.march_tris, g.march_prim)
@@ -268,8 +248,8 @@ def test_march_sweep_kernel_on_the_overflow_fallback(monkeypatch, setting):
     monkeypatch.delenv("MCPT_MARCH_BLOCK", raising=False)
     for k, v in K2_SETTINGS[setting].items():
         monkeypatch.setenv(k, v)
-    g = _soup_geometry(20000, dev)
-    o, d, lo, hi = _rays(30000, dev)
+    g = soup_geometry(20000, dev)
+    o, d, lo, hi = soup_rays(30000, dev)
     overflow = pair_inputs(g, o, d, lo, hi, 2)[0]
     idx = overflow.nonzero()[:, 0]
     assert 0 < idx.numel() < 30000
@@ -284,22 +264,63 @@ def test_march_sweep_kernel_on_the_overflow_fallback(monkeypatch, setting):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 2, 8])
-def test_corridor_kernel_equals_plain(monkeypatch, k):
+@pytest.mark.parametrize("k", [1, 2, 8, 14])
+@pytest.mark.parametrize("kind", ["soup", *CORRIDOR_CASES])
+def test_corridor_kernel_equals_plain(monkeypatch, kind, k):
+    """K3's slots and overflow equal to corridor_plain's: on a SAH soup's
+    chunks, and on chip_smoke.CORRIDOR_CASES — chunk counts not a
+    multiple of 32 and past the chunks a block stages at a time, rays
+    dead (t_max below t_min) or with t_max == t_min (tested, and may fill
+    slots), axis-parallel rays on face planes, an all-dead input, and
+    ray counts that fill no whole block."""
+    from chip_smoke import corridor_case
     from mcpt_tpu_torch.ops import pair_sweep as psw
 
     dev = _cuda()
-    monkeypatch.setenv("MCPT_MARCH_LEAF", "16")
-    g = _soup_geometry(6000, dev)
-    o, d, lo, hi = _rays(20000, dev)
-    args = (o, d, lo, hi, g.march_min, g.march_max, k)
+    if kind == "soup":
+        monkeypatch.setenv("MCPT_MARCH_LEAF", "16")
+        g = soup_geometry(6000, dev)
+        args = (*soup_rays(20000, dev), g.march_min, g.march_max)
+    else:
+        args = corridor_case(kind, dev)
+    o, d, lo, hi, cmin, cmax = args
+    lm = cmin.shape[0]
     before = psw.corridor_launches
-    slots, over = psw.corridor(*args)
+    slots, over = psw.corridor(*args, k)
+    torch.cuda.synchronize()
     assert psw.corridor_launches == before + 1
-    slots_p, over_p = psw.corridor_plain(*args)
+    slots_p, over_p = psw.corridor_plain(*args, k)
     assert torch.equal(slots, slots_p)
     assert torch.equal(over, over_p)
-    assert bool(over.any()) and bool((slots < g.n_march_leaves).any())
+    filled = slots < lm
+    if kind == "all-dead":
+        assert not bool(filled.any()) and not bool(over.any())
+        return
+    assert bool(filled.any()) and not bool(filled[hi < lo].any())
+    if kind != "few":
+        assert bool(over.any())
+    if kind in ("ragged", "grid", "tiled"):
+        assert bool(filled[hi == lo].any())
+        assert bool(filled[::5].any())  # axis-parallel rays
+    if kind == "tiled":
+        tile = psw.corridor_tile()
+        assert lm > 2 * tile
+        # corridors carried across tiles without overflow
+        assert bool(((slots >= tile) & filled).any(dim=1)[~over].any())
+
+
+@pytest.mark.cuda
+def test_corridor_wrapper_checks_its_inputs():
+    from chip_smoke import corridor_inputs
+    from mcpt_tpu_torch.ops import pair_sweep as psw
+
+    dev = _cuda()
+    o, d, lo, hi, cmin, cmax = corridor_inputs(64, 40, dev)
+    for k in (0, psw.MAX_K + 1):
+        with pytest.raises(ValueError):
+            psw.corridor(o, d, lo, hi, cmin, cmax, k)
+    with pytest.raises(TypeError):
+        psw.corridor(o.double(), d, lo, hi, cmin, cmax, 8)
 
 
 @pytest.mark.cuda
@@ -313,8 +334,8 @@ def test_pair_sweep_kernel_bit_equal_to_plain(monkeypatch, shuffle, any_hit):
 
     dev = _cuda()
     monkeypatch.setenv("MCPT_MARCH_LEAF", "32")
-    g = _soup_geometry(6000, dev)
-    o, d, lo, hi = _rays(20000, dev)
+    g = soup_geometry(6000, dev)
+    o, d, lo, hi = soup_rays(20000, dev)
     _, _, *pairs = pair_inputs(g, o, d, lo, hi, 8)
     if shuffle:
         perm = torch.randperm(len(pairs[0]), device=dev,
@@ -444,8 +465,8 @@ def test_large_scene_routes_match_plain_march(monkeypatch, route, k):
     monkeypatch.setenv("MCPT_MARCH_LEAF", "64")
     monkeypatch.setenv("MCPT_TRAVERSAL", route)
     monkeypatch.setenv("MCPT_PAIR_K", k)
-    g = _soup_geometry(20000, dev)
-    o, d, lo, hi = _rays(30000, dev)
+    g = soup_geometry(20000, dev)
+    o, d, lo, hi = soup_rays(30000, dev)
     plain = (o, d, lo, hi, g.march_min, g.march_max, g.march_tris, g.march_prim)
     got = intersect_closest(g, o, d, lo, hi)
     same_hits(got, msw.march_sweep_plain(*plain), o, d, g.packed_tris, lo,

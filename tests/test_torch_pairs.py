@@ -75,6 +75,60 @@ def test_corridor_plain_equals_pallas_interpret(monkeypatch, k):
     assert not bool((slots[::6] < lm).any())  # dead rays have no corridor
 
 
+@pytest.mark.parametrize("k", [14, 15])
+def test_corridor_k_limit_as_the_reference(monkeypatch, k):
+    """Both corridors take at most 14 slots: at 15 the reference's
+    corridor_sweep, the port's corridor and both pair routes (through
+    MCPT_PAIR_K) raise ValueError; at 14 both corridors give the same
+    slots and flags."""
+    monkeypatch.setenv("MCPT_MARCH_LEAF", "16")
+    monkeypatch.setenv("MCPT_PAIR_K", str(k))
+    jg, tg = _soup(1500, seed=28)
+    o, d, t_max = _rays(300, seed=29, dead_every=6, cut=True)
+    args = (*_t(o, d), torch.full((300,), 1e-4), torch.as_tensor(t_max),
+            *_t(jg.march_min, jg.march_max), k)
+    if k > psw.MAX_K:
+        with pytest.raises(ValueError):
+            _reference_corridor(jg, o, d, t_max, k)
+        with pytest.raises(ValueError):
+            psw.corridor(*args)
+        with pytest.raises(ValueError):
+            JT._intersect_pairs(jg, o, d, 1e-4, jnp.asarray(t_max), False,
+                                interpret=True)
+        with pytest.raises(ValueError):
+            TT._intersect_pairs(tg, *args[:4], False)
+        return
+    slots, over = psw.corridor(*args)
+    ref_slots, ref_over = _reference_corridor(jg, o, d, t_max, k)
+    np.testing.assert_array_equal(slots.numpy(), ref_slots)
+    np.testing.assert_array_equal(over.numpy(), ref_over)
+    assert int((slots < tg.n_march_leaves).sum(dim=1).max()) > 8
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_union_cull_premise(grid):
+    """K3's cull is exact: every chunk whose box the plain chunk_entry
+    lets a ray enter lies in a 32-chunk union (super_boxes at
+    pair_sweep.UNION) that the same test lets it enter, on random boxes
+    and rays with the kernel's edge cases (corridor_inputs: flat and
+    parked boxes, axis-parallel rays on face planes, t_max equal to or
+    below t_min; with grid, faces and origins coinciding)."""
+    from chip_smoke import corridor_inputs
+
+    o, d, lo, hi, cmin, cmax = corridor_inputs(3001, 333, "cpu", seed=30,
+                                               grid=grid)
+    ok = torch.isfinite(msw.chunk_entry(o, d, lo, hi, cmin, cmax))
+    umin, umax = msw.super_boxes(cmin, cmax, psw.UNION)
+    assert umin.shape == (11, 3)
+    uok = torch.isfinite(msw.chunk_entry(o, d, lo, hi, umin, umax))
+    owner = torch.arange(333) // psw.UNION
+    assert not bool((ok & ~uok[:, owner]).any())
+    # the edge cases pass boxes, and some unions fail
+    assert bool(ok[::5].any()) and bool(ok[hi == lo].any())
+    assert not bool(ok[hi < lo].any())
+    assert bool(uok.any()) and not bool(uok.all())
+
+
 def _reference_pair_sweep(args, any_hit, block=128):
     """The reference's Pallas pair_sweep (interpret mode) on K4's inputs,
     in the [G, 16, R] layout its wrapper builds (traversal.py:1002-1019;
