@@ -21,13 +21,15 @@ Phases, one short line each:
   render-mesh    the box plus a 16200-triangle UV sphere (K1 at its design
                  size), 512x512, 4 spp, depth 8
   kernel-K2      the block march against its plain version, closest hit and
-                 any-hit, on four inputs — 65536 camera rays and first-bounce
-                 rays of the march scene, random rays in a random soup, and
-                 the pair route's overflow-only fallback input on the pairs
-                 scene — each at four settings (defaults, one chunk per
-                 pick, super-chunk cull off, interval phase A on); each
-                 time beside its bound and the time before the redesign;
-                 camera and bounce rays
+                 any-hit, on five inputs — 65536 camera rays and first-bounce
+                 rays of the march scene, random rays in a random soup, the
+                 pair route's overflow-only fallback input on the pairs
+                 scene, and the batched body's input on the materials scene
+                 (65536 continuations and 65536 shadow segments with finite
+                 t_max, coherence classes 0-3: 131072 lanes) — each at four
+                 settings (defaults, one chunk per pick, super-chunk cull
+                 off, interval phase A on); each time beside its bound and
+                 the time before the redesign; camera and bounce rays
                  also at 32, 64, 128 and 256 rays per block
   kernel-K3K4    the corridor kernel against its plain version (slots and
                  overflow equal) and the pair sweep against its plain version
@@ -39,8 +41,17 @@ Phases, one short line each:
                  before the redesign, and the most distinct chunks the pairs
                  of one warp (and of one 512-pair block) name
   render-march   Renderer.render of the 51,236-triangle march scene at
-                 512x512, 16 spp, depth 8 after a warm-up frame, through K2;
-                 then a 64x64 card render held against the CPU render
+                 512x512, 16 spp, depth 8 after a warm-up frame, through K2
+                 and the batched regen body (closest hit only); then a 64x64
+                 card render held against the CPU render
+  march-unbatched the same frame with MCPT_BATCH_TRACE=0 (the unbatched
+                 body: continuation and any-hit shadow rays traced apart),
+                 alternating with the batched body, MARCH_FRAMES frames a
+                 side: both walls with their spread
+  render-materials the march scene in every BSDF family plus a thin pane
+                 (cornell_mesh_materials, 51,238 triangles) at 512x512, 16
+                 spp, depth 8 after a warm-up frame, through the batched body
+                 and K2; then a 64x64 card render held against the CPU render
   render-pairs   the same for the 105,012-triangle pairs scene, through K3
                  and K4 (and K2 for corridors longer than K)
   pairs-by-march the pairs scene's frame again with MCPT_TRAVERSAL=march,
@@ -702,7 +713,8 @@ BLOCK_SWEEP = (32, 64, 128, 256)
 #: 80GB HBM3, 700 W): the bounce set in chip_smoke, and the pair route's
 #: fallback launch per profile_frame (over all N rays, ~1% live); the
 #: camera and soup sets were not timed
-K2_BEFORE_MS = {"camera": None, "bounce": 8.701, "soup": None, "fallback": 6.4}
+K2_BEFORE_MS = {"camera": None, "bounce": 8.701, "soup": None,
+                "fallback": 6.4, "batched": None}
 
 
 @contextlib.contextmanager
@@ -772,6 +784,56 @@ def fallback_input(dev):
     return ("fallback", g, _march_args(g, o[idx], d[idx], lo[idx], hi[idx]))
 
 
+def batched_input(dev):
+    """K2's input in the batched regen body on the materials scene, at its
+    shape: 65536 continuations — the first half fresh camera rays (class
+    0), the second half first-bounce rays (class 1) — and 65536 shadow
+    segments from the camera rays' hits toward points sampled on the area
+    light, t_max = max(dist - EPSILON_DISTANCE, 0) where the camera ray hit
+    (else 0), half in class 2 and half in class 3, the class of a scene's
+    second and later queries, so that the sort sees the whole 2-bit class
+    field; t_min the default.  In the body's block order.  Returns (label,
+    geometry, args)."""
+    import torch
+
+    from mcpt_tpu_torch.integrators.path import _sample_area_light
+    from mcpt_tpu_torch.ops import march_sweep as msw
+    from mcpt_tpu_torch.ops.math import EPSILON_DISTANCE
+    from mcpt_tpu_torch.ops.traversal import march_order
+    from mcpt_tpu_torch.scene.builtin import cornell_mesh_materials
+
+    scene, cam = _scene(cornell_mesh_materials, dev)
+    g = scene.geom
+    (_, o_c, d_c, lo, hi), (_, o_b, d_b, _, hi_b) = camera_and_bounce(
+        scene, cam, dev, seed=4)
+    n = len(o_c)
+    half = n // 2
+    hit = hi_b > 0  # the camera ray hit: o_b is its hit point
+    r = np.random.default_rng(8)
+    xi = torch.as_tensor(r.random((3, n), dtype=np.float32), device=dev)
+    p_l = _sample_area_light(scene, xi[0], xi[1], xi[2])[0]
+    to_l = p_l - o_b
+    dist = to_l.norm(dim=-1)
+    d_s = to_l / torch.clamp(dist, min=1e-20)[:, None]
+    t_s = torch.where(hit, torch.clamp(dist - EPSILON_DISTANCE, min=0.0),
+                      torch.zeros_like(dist))
+    o = torch.cat([o_c[:half], o_b[half:], o_b]).contiguous()
+    d = torch.cat([d_c[:half], d_b[half:], d_s]).contiguous()
+    t_max = torch.cat([hi[:half], hi_b[half:], t_s])
+    t_min = torch.full_like(t_max, EPSILON_DISTANCE)
+    bias = torch.cat([torch.full((size,), c, dtype=torch.int32, device=dev)
+                      for size, c in ((half, 0), (n - half, 1), (half, 2),
+                                      (n - half, 3))])
+    order = march_order(g, o, d, t_min, t_max, bias)
+    if not bool((msw.march_sweep_plain(
+            o[n:], d[n:], t_min[n:], t_max[n:], g.march_min, g.march_max,
+            g.march_tris, g.march_prim).valid).any()):
+        raise AssertionError("batched input: no shadow segment is occluded")
+    return ("batched", g, (o[order].contiguous(), d[order].contiguous(),
+                           t_min[order], t_max[order], g.march_min,
+                           g.march_max, g.march_tris, g.march_prim))
+
+
 def phase_kernel_k2(dev):
     import torch
 
@@ -800,6 +862,7 @@ def phase_kernel_k2(dev):
         torch.as_tensor(d_np, device=dev),
         torch.full((TILE,), 1e-4, device=dev), hi_s)))
     sets.append(fallback_input(dev))
+    sets.append(batched_input(dev))
 
     lib = build.library()
     max_err = 0.0
@@ -840,6 +903,13 @@ def phase_kernel_k2(dev):
         if label == "bounce":
             bounce = (args, bound_ms, bound_by, lm, ls)
             bounce_sup = supers
+        if label == "batched":
+            batched = {"shape": f"{len(args[0])} lanes (65536 continuations "
+                                f"+ 65536 shadow segments, classes 0-3) x "
+                                f"{lm} chunks of {ls}",
+                       "ms": times[(label, "default")], "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+            batched_args, batched_sup = args, supers
         if label in ("camera", "bounce"):
             # the evidence for the default block size: the same input at
             # each size, default knobs otherwise
@@ -869,9 +939,13 @@ def phase_kernel_k2(dev):
         "shape": f"{len(args[0])} bounce rays x {lm} chunks of {ls}",
         "ms_by_input_and_setting": {f"{k[0]}/{k[1]}": v
                                     for k, v in times.items()},
+        "batched": batched,
     }
     time_on_device(rec, "device_ms",
                    lambda: msw.march_sweep(*args, supers=bounce_sup),
+                   "march_kernel")
+    time_on_device(batched, "device_ms",
+                   lambda: msw.march_sweep(*batched_args, supers=batched_sup),
                    "march_kernel")
     return rec
 
@@ -1055,11 +1129,26 @@ def phase_kernel_k3k4(dev):
     return k3, k4
 
 
+def body_taken(scene, counts, label):
+    """The regen body a frame took, by the gate, checked against its
+    launches: the batched body traces closest hit only (its shadow
+    segments too), so it launches no any-hit kernel."""
+    from mcpt_tpu_torch.integrators.path import _use_batched_trace
+
+    body = "batched" if _use_batched_trace(scene) else "unbatched"
+    n_any = counts["K1_any"] + counts["K2_any"]
+    if body == "batched" and n_any:
+        raise AssertionError(f"{label}: the batched body's frame launched "
+                             f"{n_any} any-hit kernels")
+    return body
+
+
 def phase_render_route(dev, smi, label, make_config, route, kernels,
-                       against_cpu=True):
+                       against_cpu=True, body=None):
     """Renderer.render of a mesh scene above DENSE_MAX_PRIMS at full width
-    after a warm-up frame; the route's kernels must have launched.
-    Returns the kernel counts and the frame's wall."""
+    after a warm-up frame; the route's kernels must have launched, and the
+    regen body must be `body` where given.  Returns the kernel counts, the
+    frame's wall and the renderer."""
     from mcpt_tpu_torch.ops.traversal import resolved_strategy
     from mcpt_tpu_torch.render.renderer import Renderer
 
@@ -1074,16 +1163,52 @@ def phase_render_route(dev, smi, label, make_config, route, kernels,
     missing = [k for k in kernels if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{label}: {missing} not launched ({counts})")
+    taken = body_taken(r.scene, counts, label)
+    if body is not None and taken != body:
+        raise AssertionError(f"{label}: took the {taken} body, not {body}")
     rays = RES * RES * SPP * (1 + 2 * AVG_BOUNCES)
     say(f"{label}: {int(g.opaque.sum())} triangles, {g.n_march_leaves} "
-        f"chunks of {g.march_leaf}, route {route}; {RES}x{RES} {SPP}spp "
-        f"d{DEPTH} wall {wall:.3f} s, {rays / wall / 1e6:.2f} Mrays/s on "
-        f"{smi}; launches K2 {counts['K2']} ({counts['K2_any']} any-hit), "
-        f"K3 {counts['K3']}, K4 {counts['K4']}, K1 {counts['K1']}; mean "
-        f"{np.round(img.mean(axis=(0, 1)), 4).tolist()}")
+        f"chunks of {g.march_leaf}, route {route}, {taken} body; {RES}x{RES} "
+        f"{SPP}spp d{DEPTH} wall {wall:.3f} s, {rays / wall / 1e6:.2f} "
+        f"Mrays/s on {smi}; launches K2 {counts['K2']} ({counts['K2_any']} "
+        f"any-hit), K3 {counts['K3']}, K4 {counts['K4']}, K1 {counts['K1']}; "
+        f"mean {np.round(img.mean(axis=(0, 1)), 4).tolist()}")
     if against_cpu:
         card_vs_cpu(make_config, dev, label)
-    return counts, wall
+    return counts, wall, r
+
+
+#: frames a side of march-unbatched, alternating with the batched body
+MARCH_FRAMES = 3
+
+
+def phase_march_unbatched(smi, r, batched_wall):
+    """The march scene's frame by the unbatched body (MCPT_BATCH_TRACE=0)
+    and by the batched one, alternating, MARCH_FRAMES frames a side, on
+    render-march's renderer: both walls with their spread.  Returns the
+    unbatched frames' kernel counts."""
+    walls = {"batched": [batched_wall], "unbatched": []}
+    for i in range(MARCH_FRAMES):
+        for body, flag in (("unbatched", "0"), ("batched", "1")):
+            if body == "batched" and i == MARCH_FRAMES - 1:
+                break  # render-march's frame is the batched side's first
+            with knobs({"MCPT_BATCH_TRACE": flag}):
+                img, wall, counts = _render_timed(r, SPP, frame_base=2 + i)
+                _check_image(img, f"march-unbatched {body}")
+                if (body_taken(r.scene, counts, "march-unbatched") != body
+                        or (body == "unbatched") != (counts["K2_any"] > 0)):
+                    raise AssertionError(f"march-unbatched: not the {body} "
+                                         f"body ({counts})")
+            walls[body].append(wall)
+            if body == "unbatched":
+                unbatched_counts = counts
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    say("march-unbatched: frame walls on " + smi + "; " + "; ".join(
+        f"{k} {', '.join(f'{w:.3f}' for w in v)} s (median {med[k]:.3f}, "
+        f"spread {min(v):.3f}-{max(v):.3f})" for k, v in walls.items())
+        + f"; K2 launches a frame: batched closest only, unbatched "
+        f"{unbatched_counts['K2']} ({unbatched_counts['K2_any']} any-hit)")
+    return unbatched_counts
 
 
 def phase_pairs_by_march(dev, smi, pairs_wall):
@@ -1093,7 +1218,7 @@ def phase_pairs_by_march(dev, smi, pairs_wall):
     from mcpt_tpu_torch.scene.builtin import cornell_mesh_pairs
 
     with knobs({"MCPT_TRAVERSAL": "march"}):
-        counts, wall = phase_render_route(
+        counts, wall, _ = phase_render_route(
             dev, smi, "pairs-by-march", cornell_mesh_pairs, "march", ("K2",),
             against_cpu=False)
     if counts["K3"] or counts["K4"]:
@@ -1108,7 +1233,8 @@ def phase_device_times(k1, k2, k3, k4):
     """The queued device times (time_on_device), after every frame."""
     for record, field, fn, kernel, reps in _device_jobs:
         record[field] = kernel_ms(fn, kernel, reps=reps)
-    for rec, label in ((k1, "K1(a)"), (k2, "K2 bounce"), (k3, "K3 bounce"),
+    for rec, label in ((k1, "K1(a)"), (k2, "K2 bounce"),
+                       (k2["batched"], "K2 batched"), (k3, "K3 bounce"),
                        (k4, "K4 bounce")):
         say(f"device-times: {label} {rec['device_ms']:.4f} ms of device time "
             f"a launch (between events {rec['ms']:.4f} ms)")
@@ -1154,21 +1280,31 @@ def main():
     _phase[0] = "kernel-K3K4"
     k3, k4 = phase_kernel_k3k4(dev)
 
-    from mcpt_tpu_torch.scene.builtin import cornell_mesh_march, cornell_mesh_pairs
+    from mcpt_tpu_torch.scene.builtin import (
+        cornell_mesh_march, cornell_mesh_materials, cornell_mesh_pairs)
 
     _phase[0] = "render-march"
-    c_m, _ = phase_render_route(dev, smi, "render-march", cornell_mesh_march,
-                                "march", ("K2",))
+    c_m, march_wall, r_m = phase_render_route(
+        dev, smi, "render-march", cornell_mesh_march, "march", ("K2",),
+        body="batched")
+    _phase[0] = "march-unbatched"
+    phase_march_unbatched(smi, r_m, march_wall)
+    del r_m
+    _phase[0] = "render-materials"
+    c_mat, _, _ = phase_render_route(
+        dev, smi, "render-materials", cornell_mesh_materials, "march",
+        ("K2",), body="batched")
     _phase[0] = "render-pairs"
-    c_p, pairs_wall = phase_render_route(dev, smi, "render-pairs",
-                                         cornell_mesh_pairs, "pairs",
-                                         ("K3", "K4"))
+    c_p, pairs_wall, _ = phase_render_route(
+        dev, smi, "render-pairs", cornell_mesh_pairs, "pairs", ("K3", "K4"),
+        body="unbatched")
     _phase[0] = "pairs-by-march"
     phase_pairs_by_march(dev, smi, pairs_wall)
     _phase[0] = "device-times"
     phase_device_times(k1, k2, k3, k4)
-    k2["launches"] = c_m["K2"] + c_p["K2"]
+    k2["launches"] = c_m["K2"] + c_mat["K2"] + c_p["K2"]
     k2["launches_by_path"] = {"render-march": c_m["K2"],
+                              "render-materials": c_mat["K2"],
                               "render-pairs": c_p["K2"]}
     k3["launches"] = c_p["K3"]
     k4["launches"] = c_p["K4"]

@@ -7,9 +7,15 @@ Every lane owns all `spp` samples of one pixel: when its path dies it
 re-seeds and traces its next camera sample in the same iteration.  Each
 iteration mirrors the reference's body — trace, emitter hit with MIS,
 Russian roulette with immediate compensation, NEE toward one
-CDF-sampled emissive triangle with shadow-ray RR, diffuse BSDF
-sampling — and draws the same number of uniforms in every lane, so the
-sample streams, and with them the image, match the reference's.
+CDF-sampled emissive triangle with shadow-ray RR, BSDF sampling — and
+draws the same number of uniforms in every lane, so the sample streams,
+and with them the image, match the reference's.
+
+Two bodies, as in the reference: the unbatched one traces the
+continuation and then each NEE shadow ray on its own; the batched one
+(_shade_regen_batched, for large all-opaque march-routed scenes, the
+_use_batched_trace gate) traces the continuation and the previous
+vertex's shadow rays in ONE closest-hit call per iteration.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from mcpt_tpu_torch.ops.math import (
     take_rows,
 )
 from mcpt_tpu_torch.ops.scene_intersect import scene_any, scene_closest
+from mcpt_tpu_torch.ops.traversal import DENSE_MAX_PRIMS, resolved_strategy
 from mcpt_tpu_torch.ops.warps import sample_triangle_uniform, searchsorted_cdf
 from mcpt_tpu_torch.render.camera import generate_rays
 from mcpt_tpu_torch.scene.compile import SceneData
@@ -119,8 +126,24 @@ def _sample_area_light(scene: SceneData, xi_sel, xi_a, xi_b):
 def _bsdf_eval(scene, hit, wi, wo):
     return bsdfs.bsdf_evaluate(
         scene.bsdf, scene.tex, scene.present_types, hit.bsdf_id, wi, wo,
-        hit.normal, hit.uv,
+        hit.normal, hit.tangent, hit.bitangent, hit.inside, hit.uv,
+        kc=(scene.brdf_avg, scene.albedo_avg),
     )
+
+
+def _bsdf_sample(scene, hit, wo, xi):
+    return bsdfs.bsdf_sample(
+        scene.bsdf, scene.tex, scene.present_types, hit.bsdf_id, wo,
+        hit.normal, hit.tangent, hit.bitangent, hit.inside, hit.uv, xi,
+        kc=(scene.brdf_avg, scene.albedo_avg),
+    )
+
+
+def _nee_query_count(scene: SceneData) -> int:
+    """Shadow queries one _direct_lighting call makes (path.py:278-283):
+    one for the area lights, if any (analytic emitters and the envmap
+    are ROADMAP item 14)."""
+    return 1 if scene.n_emissive else 0
 
 
 def nee_draw_count(scene: SceneData) -> int:
@@ -134,12 +157,13 @@ def nee_draw_count(scene: SceneData) -> int:
     return 4 if nee_rr_tau() > 0.0 else 3
 
 
-def _nee_rr(pend, live, xi, beta, tau):
+def _nee_rr(pend, live, xi, tau, beta=None):
     """Shadow-ray RR on one query's pending contribution (path.py:321).
 
-    The decision sees the full pending radiance beta * pend; survivors
-    below tau are reweighted by tau / m, so E[pend'] = pend."""
-    m = (pend * beta).amax(dim=-1)
+    The decision sees the full pending radiance (beta * pend, or pend
+    where beta is already folded in); survivors below tau are reweighted
+    by tau / m, so E[pend'] = pend."""
+    m = (pend if beta is None else pend * beta).amax(dim=-1)
     p = torch.clamp(m / tau, 0.0, 1.0)
     fire = m < tau
     keep = ~fire | (xi < p)
@@ -190,39 +214,132 @@ def _direct_lighting(scene: SceneData, hit: HitAttrs, wo, alive, xi, beta):
         scene, hit, wo, alive, xi[0], xi[1], xi[2])
     tau = nee_rr_tau()
     if tau > 0.0:  # at tau = 0 the coin is not drawn (nee_draw_count)
-        contrib, geo_ok = _nee_rr(contrib, geo_ok, xi[3], beta, tau)
+        contrib, geo_ok = _nee_rr(contrib, geo_ok, xi[3], tau, beta)
     occluded = shadow_occluded(scene, hit.position, -wi, geo_ok, dist)
     return _where3(occluded | ~geo_ok, torch.zeros_like(contrib), contrib)
+
+
+def _use_batched_trace(scene: SceneData) -> bool:
+    """Whether shade_regen takes the batched body (path.py:763-801).
+
+    Gated to scenes where "a closest hit exists" equals "the shadow
+    segment is occluded" (every prim opaque, no opacity maps), so that the
+    continuation and the Q shadow segments share one closest-hit call of
+    (1 + Q) * n lanes; scenes of at most DENSE_MAX_PRIMS prims keep the
+    dense sweep, whose cost is per lane.  MCPT_BATCH_TRACE=0 opts out and
+    =1 opts in past the 2^18-prim cap and the pair route, which the
+    default leaves unbatched.  The prim count is the padded one, the
+    reference's geom.p0.shape[0]."""
+    flag = os.environ.get("MCPT_BATCH_TRACE")
+    prims = scene.geom.p0.shape[0]
+    if flag is not None:
+        if flag != "1":
+            return False
+    elif prims > (1 << 18) or resolved_strategy(scene.geom) == "pairs":
+        return False
+    return (scene.all_opaque and not scene.has_opacity
+            and prims > DENSE_MAX_PRIMS and _nee_query_count(scene) >= 1)
+
+
+class _Regen(NamedTuple):
+    """A tile-chunk's sample parameters, shared by both bodies."""
+
+    pixel_idx: torch.Tensor
+    base: int
+    spp: int
+    spp_total: int
+    sample_offset: int
+
+
+def _camera_samples(camera, reg: _Regen, fresh, work_k):
+    """Camera rays and seeds of each lane's next sample k = work_k:
+    jitter u = (sample_offset + k) / spp_total, v = VdC2(base + k + 1),
+    seed Tea(pixel, base + k).  Returns (o, d, seed) for every lane;
+    callers keep them where `fresh`."""
+    k = torch.where(fresh, work_k, torch.zeros_like(work_k))
+    u = (float(reg.sample_offset) + k.to(torch.float32)) / reg.spp_total
+    v = rng.van_der_corput_base2(reg.base + k.long() + 1)
+    o, d = generate_rays(camera, reg.pixel_idx, u, v)
+    return o, d, rng.pixel_seed(reg.pixel_idx, reg.base + k.long())
+
+
+def _emitter_hit(scene, integ, hit, d, beta, pdf_mis, alive, primary):
+    """Radiance of an emitter hit with MIS (primary hits: w = 1, no
+    cosine cut; hide_emitters honoured), and the lanes whose path ends
+    on an emitter or on a one-sided back face.  Returns (L_add, ends)."""
+    has_b = hit.bsdf_id >= 0
+    emitter = bsdfs.is_emitter(scene.bsdf, hit.bsdf_id) & has_b
+    wi_in = -d  # light-travel convention of the emitter formulas
+    cos_prime = dot(wi_in, hit.normal)
+    pdf_area_hit = take_rows(scene.map_inst_light_pdf,
+                             torch.clamp(hit.inst_id, min=0))
+    t_safe = torch.where(hit.valid, torch.clamp(hit.t, max=1e8),
+                         torch.ones_like(hit.t))
+    pdf_direct = pdf_area_hit * (t_safe * t_safe) / torch.clamp(
+        cos_prime, min=1e-12)
+    w_bsdf = mis_weight(pdf_mis, pdf_direct)
+    rad = bsdfs.get_radiance(scene.bsdf, scene.tex, hit.bsdf_id, hit.uv)
+    backface = hit.inside & ~bsdfs.is_twosided(scene.bsdf, hit.bsdf_id) & has_b
+    take_em = (alive & hit.valid & emitter & ~backface
+               & ((cos_prime >= EPSILON_FLOAT) | primary))
+    if integ.hide_emitters:
+        take_em = take_em & ~primary
+    L_add = _where3(take_em, w_bsdf[..., None] * beta * rad,
+                    torch.zeros_like(beta))
+    return L_add, emitter | backface
+
+
+def _roulette(integ, seed, vert, alive, beta):
+    """Russian roulette with immediate compensation (one draw a lane)."""
+    seed, rr_u = rng.random_float(seed)
+    need_rr = vert >= integ.depth_rr
+    alive = alive & (~need_rr | (rr_u < integ.pdf_rr))
+    beta = _where3(alive & need_rr, beta * (1.0 / integ.pdf_rr), beta)
+    return seed, alive, beta
+
+
+def _scatter(scene, hit, wi_in, seed, alive, beta, pdf_mis):
+    """BSDF sample -> the next segment.  Returns (seed, alive, beta,
+    pdf_mis, o, d)."""
+    seed, xi_b = rng.random_floats(seed, bsdfs.N_SAMPLE_DRAWS)
+    wi, pdf_b, f, valid_b = _bsdf_sample(scene, hit, wi_in, xi_b)
+    beta_new = beta * f / torch.clamp(pdf_b, min=1e-12)[..., None]
+    alive = alive & valid_b & (beta_new.amax(dim=-1) >= EPSILON)
+    beta = _where3(alive, beta_new, beta)
+    pdf_mis = torch.where(hit.bsdf_id < 0, pdf_mis, pdf_b)
+    return seed, alive, beta, pdf_mis, hit.position, -wi
+
+
+def _fold(integ, L, L_samp, mask):
+    """Fold finished per-sample radiance into the film sum, with the
+    optional per-sample clamp (renderer.cpp:77-79)."""
+    if integ.sample_clamp > 0:
+        L_samp = torch.clamp(L_samp, max=integ.sample_clamp)
+    return L + _where3(mask, L_samp, torch.zeros_like(L_samp))
 
 
 def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
                 frame_base=0, spp_total: int | None = None, sample_offset=0):
     """Fused spp x depth wavefront with ray regeneration
-    (mcpt_tpu/integrators/path.py:1058-1267, the non-batched body).
+    (mcpt_tpu/integrators/path.py:1058-1267).
 
     pixel_idx: [N] int tensor of linear pixel indices.  Sample k of a
     pixel uses jitter u = (sample_offset + k) / spp_total,
     v = VdC2(frame_base + sample_offset + k + 1) and seed
     Tea(pixel, frame_base + sample_offset + k).  Returns
-    (film [N, 3] = mean over the spp samples, final seed)."""
+    (film [N, 3] = mean over the spp samples, final seed).  Scenes the
+    _use_batched_trace gate admits take _shade_regen_batched: the same
+    estimator and sample streams, one traversal per iteration."""
+    reg = _Regen(pixel_idx, (int(frame_base) + int(sample_offset)) & 0xFFFFFFFF,
+                 spp, spp if spp_total is None else spp_total, sample_offset)
+    if _use_batched_trace(scene):
+        return _shade_regen_batched(scene, integ, camera, reg)
     n = pixel_idx.shape[0]
     dev = pixel_idx.device
-    if spp_total is None:
-        spp_total = spp
-    base = (int(frame_base) + int(sample_offset)) & 0xFFFFFFFF
     n_nee = nee_draw_count(scene)
-    pdf_rr_rcp = 1.0 / integ.pdf_rr
-    no_lights = scene.n_emissive == 0
     # with no lights (or depth_max 1) only the primary vertex matters
+    no_lights = scene.n_emissive == 0
     depth_cut = 1 if (no_lights or integ.depth_max <= 1) else integ.depth_max
-
-    def fold(L, L_samp, mask):
-        """Fold finished per-sample radiance into the film sum, with the
-        optional per-sample clamp (renderer.cpp:77-79)."""
-        Ls = L_samp
-        if integ.sample_clamp > 0:
-            Ls = torch.clamp(Ls, max=integ.sample_clamp)
-        return L + _where3(mask, Ls, torch.zeros_like(Ls))
 
     f32 = dict(dtype=torch.float32, device=dev)
     zeros3 = torch.zeros((n, 3), **f32)
@@ -234,22 +351,19 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
     d = zeros3.clone()
     d[:, 2] = 1.0
     pdf_mis = torch.full((n,), 1e12, **f32)
-    seed = rng.pixel_seed(pixel_idx, base)
+    seed = rng.pixel_seed(pixel_idx, reg.base)
     alive = torch.zeros(n, dtype=torch.bool, device=dev)
     vert = torch.zeros(n, dtype=torch.int32, device=dev)
 
     while bool((alive | (work_k < spp)).any()):
         # --- regenerate: dead lanes with samples left start the next one
         fresh = ~alive & (work_k < spp)
-        L = fold(L, L_samp, fresh)
+        L = _fold(integ, L, L_samp, fresh)
         L_samp = _where3(fresh, zeros3, L_samp)
-        k = torch.where(fresh, work_k, torch.zeros_like(work_k))
-        u = (float(sample_offset) + k.to(torch.float32)) / spp_total
-        v = rng.van_der_corput_base2(base + k.long() + 1)
-        o_new, d_new = generate_rays(camera, pixel_idx, u, v)
+        o_new, d_new, seed_new = _camera_samples(camera, reg, fresh, work_k)
         o = _where3(fresh, o_new, o)
         d = _where3(fresh, d_new, d)
-        seed = torch.where(fresh, rng.pixel_seed(pixel_idx, base + k.long()), seed)
+        seed = torch.where(fresh, seed_new, seed)
         beta = _where3(fresh, torch.ones_like(beta), beta)
         pdf_mis = torch.where(fresh, torch.full_like(pdf_mis, 1e12), pdf_mis)
         vert = torch.where(fresh, torch.zeros_like(vert), vert)
@@ -267,57 +381,158 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
         )
         hit = interpolate_hit(scene, ghit, o, d)
         vert = vert + 1
-        primary = vert == 1  # this trace was a camera segment
+        L_add, ends = _emitter_hit(scene, integ, hit, d, beta, pdf_mis,
+                                   alive, vert == 1)
+        L_samp = L_samp + L_add
+        alive = alive & hit.valid & ~ends & (vert < depth_cut)
+        seed, alive, beta = _roulette(integ, seed, vert, alive, beta)
 
-        # --- emitter hit with MIS (primary hits: w = 1, no cosine cut)
-        has_b = hit.bsdf_id >= 0
-        emitter = bsdfs.is_emitter(scene.bsdf, hit.bsdf_id) & has_b
-        wi_in = -d  # light-travel convention of the emitter formulas
-        cos_prime = dot(wi_in, hit.normal)
-        pdf_area_hit = take_rows(scene.map_inst_light_pdf,
-                                 torch.clamp(hit.inst_id, min=0))
-        t_safe = torch.where(hit.valid, torch.clamp(hit.t, max=1e8),
-                             torch.ones_like(hit.t))
-        pdf_direct = pdf_area_hit * (t_safe * t_safe) / torch.clamp(
-            cos_prime, min=1e-12)
-        w_bsdf = mis_weight(pdf_mis, pdf_direct)
-        rad = bsdfs.get_radiance(scene.bsdf, scene.tex, hit.bsdf_id, hit.uv)
-        backface = hit.inside & ~bsdfs.is_twosided(scene.bsdf, hit.bsdf_id) & has_b
-        take_em = (
-            alive & hit.valid & emitter & ~backface
-            & ((cos_prime >= EPSILON_FLOAT) | primary)
-        )
-        if integ.hide_emitters:
-            take_em = take_em & ~primary
-        L_samp = L_samp + _where3(take_em, w_bsdf[..., None] * beta * rad,
-                                  zeros3)
-        alive = alive & hit.valid & ~emitter & ~backface & (vert < depth_cut)
-
-        # --- 1. Russian roulette with immediate compensation
-        seed, rr_u = rng.random_float(seed)
-        need_rr = vert >= integ.depth_rr
-        alive = alive & (~need_rr | (rr_u < integ.pdf_rr))
-        beta = _where3(alive & need_rr, beta * pdf_rr_rcp, beta)
-
-        # --- 2. NEE
+        # --- NEE, its shadow rays traced now
         seed, xi_nee = rng.random_floats(seed, n_nee)
         L_samp = L_samp + beta * _direct_lighting(
-            scene, hit, wi_in, alive, xi_nee, beta)
+            scene, hit, -d, alive, xi_nee, beta)
 
-        # --- 3. BSDF sample -> next segment
-        seed, xi_b = rng.random_floats(seed, bsdfs.N_SAMPLE_DRAWS)
-        wi, pdf_b, f, valid_b = bsdfs.bsdf_sample(
-            scene.bsdf, scene.tex, scene.present_types, hit.bsdf_id, wi_in,
-            hit.normal, hit.tangent, hit.bitangent, hit.uv, xi_b,
-        )
-        beta_new = beta * f / torch.clamp(pdf_b, min=1e-12)[..., None]
-        alive = alive & valid_b & (beta_new.amax(dim=-1) >= EPSILON)
-        beta = _where3(alive, beta_new, beta)
-        null_vertex = hit.bsdf_id < 0
-        pdf_mis = torch.where(null_vertex, pdf_mis, pdf_b)
-        o = hit.position
-        d = -wi
+        seed, alive, beta, pdf_mis, o, d = _scatter(
+            scene, hit, -d, seed, alive, beta, pdf_mis)
 
     # fold the last sample of every lane (never followed by a regen)
-    L = fold(L, L_samp, torch.ones_like(alive))
+    L = _fold(integ, L, L_samp, torch.ones_like(alive))
+    return L / spp, seed
+
+
+def _shade_regen_batched(scene: SceneData, integ, camera, reg: _Regen):
+    """shade_regen with ONE traversal per iteration
+    (mcpt_tpu/integrators/path.py:804-1055).
+
+    The estimator and the per-sample draws are shade_regen's: only the
+    occlusion of vertex v's NEE resolves one iteration later, inside the
+    batch that traces vertex v+1's continuation.  Shadow segments run
+    with closest-hit semantics (t_max = max(dist - EPSILON_DISTANCE, 0)
+    at the default t_min; occluded = a hit exists), which the gate makes
+    equal to any-hit.  Because a lane may regenerate in between, an ended
+    sample's radiance parks in L_prev until its pending shadow rays
+    resolve; the fold, with the per-sample clamp, comes strictly after
+    that, so the clamp sees the whole sample."""
+    pixel_idx, spp = reg.pixel_idx, reg.spp
+    n = pixel_idx.shape[0]
+    dev = pixel_idx.device
+    q_n = _nee_query_count(scene)
+    n_nee = nee_draw_count(scene)
+    tau = nee_rr_tau()
+    rr_base = n_nee - (q_n if tau > 0.0 else 0)
+    depth_cut = integ.depth_max
+    f32 = dict(dtype=torch.float32, device=dev)
+    zeros3 = torch.zeros((n, 3), **f32)
+    no = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def regen(work_k, L_samp, L_prev, fold_pend, beta, o, d, pdf_mis, seed,
+              alive, vert, alive_entry):
+        """Sample boundary: lanes whose sample just ended park L_samp in
+        L_prev (folded after their pending shadows resolve) and, with
+        samples left, start the next camera ray."""
+        ended = alive_entry & ~alive
+        L_prev = _where3(ended, L_samp, L_prev)
+        fold_pend = fold_pend | ended
+        L_samp = _where3(ended, zeros3, L_samp)
+        fresh = ended & (work_k < spp)
+        o_new, d_new, seed_new = _camera_samples(camera, reg, fresh, work_k)
+        o = _where3(fresh, o_new, o)
+        d = _where3(fresh, d_new, d)
+        seed = torch.where(fresh, seed_new, seed)
+        beta = _where3(fresh, torch.ones_like(beta), beta)
+        pdf_mis = torch.where(fresh, torch.full_like(pdf_mis, 1e12), pdf_mis)
+        vert = torch.where(fresh, torch.zeros_like(vert), vert)
+        return (work_k + fresh.to(torch.int32), L_samp, L_prev, fold_pend,
+                beta, o, d, pdf_mis, seed, alive | fresh, vert, fresh)
+
+    # bootstrap: every lane "ended" an empty sample and regenerates;
+    # nothing is truly pending yet
+    d0 = zeros3.clone()
+    d0[:, 2] = 1.0
+    (work_k, L_samp, L_prev, _, beta, o, d, pdf_mis, seed, alive, vert,
+     fresh) = regen(
+        torch.zeros(n, dtype=torch.int32, device=dev), zeros3, zeros3, no,
+        torch.ones((n, 3), **f32), zeros3, d0,
+        torch.full((n,), 1e12, **f32), rng.pixel_seed(pixel_idx, reg.base),
+        no, torch.zeros(n, dtype=torch.int32, device=dev), ~no)
+    fold_pend = no
+    L = zeros3
+    sh_o = zeros3
+    sh_d = torch.zeros((q_n, n, 3), **f32)     # toward the light
+    sh_dist = torch.zeros((q_n, n), **f32)     # 0 = no query
+    sh_pend = torch.zeros((q_n, n, 3), **f32)  # beta * contrib
+
+    while bool((alive | fold_pend).any()):
+        # --- 1. ONE closest-hit trace of [continuation | shadow_1..Q];
+        # coherence classes camera 0 / bounce 1 / shadow 2 + q, clipped to
+        # the class field's 2 bits
+        bhit = scene_closest(
+            scene,
+            torch.cat([o] + [sh_o] * q_n),
+            torch.cat([d] + [sh_d[q] for q in range(q_n)]),
+            t_max=torch.cat(
+                [torch.where(alive, torch.full_like(pdf_mis, MAX_FLOAT),
+                             torch.zeros_like(pdf_mis))]
+                + [torch.clamp(sh_dist[q] - EPSILON_DISTANCE, min=0.0)
+                   for q in range(q_n)]),
+            sort_bias=torch.cat(
+                [(~fresh).int()]
+                + [torch.full((n,), min(2 + q, 3), dtype=torch.int32,
+                              device=dev) for q in range(q_n)]),
+        )
+        ghit = type(bhit)(*(x[:n] for x in bhit))
+
+        # --- 2. vertex v-1's NEE, now that its occlusion is known
+        for q in range(q_n):
+            occ = bhit.valid[n * (1 + q):n * (2 + q)]
+            add = _where3(~occ & (sh_dist[q] > 0.0), sh_pend[q], zeros3)
+            L_samp = L_samp + _where3(fold_pend, zeros3, add)
+            L_prev = L_prev + _where3(fold_pend, add, zeros3)
+
+        # --- 3. late fold: the parked sample is complete now
+        L = _fold(integ, L, L_prev, fold_pend)
+        L_prev = _where3(fold_pend, zeros3, L_prev)
+        fold_pend = no
+
+        # --- 4. shade the continuation hit (as shade_regen)
+        hit = interpolate_hit(scene, ghit, o, d)
+        vert = vert + 1
+        alive_entry = alive
+        L_add, ends = _emitter_hit(scene, integ, hit, d, beta, pdf_mis,
+                                   alive, vert == 1)
+        L_samp = L_samp + L_add
+        alive = alive & hit.valid & ~ends & (vert < depth_cut)
+        seed, alive, beta = _roulette(integ, seed, vert, alive, beta)
+
+        # --- 5. NEE: the whole contribution now, its occlusion next batch
+        seed, xi_nee = rng.random_floats(seed, n_nee)
+        queries = []
+        if scene.n_emissive:
+            queries.append(_nee_area_query(scene, hit, -d, alive, xi_nee[0],
+                                           xi_nee[1], xi_nee[2]))
+        sh_o = hit.position
+        new_d, new_dist, new_pend = [], [], []
+        for j, (wi, dist, geo_ok, contrib) in enumerate(queries):
+            pend = beta * contrib
+            if tau > 0.0:
+                pend, geo_ok = _nee_rr(pend, geo_ok, xi_nee[rr_base + j], tau)
+            live_q = geo_ok & alive & (pend.amax(dim=-1) > 0.0)
+            new_d.append(_where3(live_q, -wi, zeros3))
+            new_dist.append(torch.where(live_q, dist, torch.zeros_like(dist)))
+            new_pend.append(_where3(live_q, pend, zeros3))
+        if q_n:
+            sh_d = torch.stack(new_d)
+            sh_dist = torch.stack(new_dist)
+            sh_pend = torch.stack(new_pend)
+
+        # --- 6. BSDF sample -> the next continuation
+        seed, alive, beta, pdf_mis, o, d = _scatter(
+            scene, hit, -d, seed, alive, beta, pdf_mis)
+
+        # --- 7. sample boundary: park ended samples, start new ones
+        (work_k, L_samp, L_prev, fold_pend, beta, o, d, pdf_mis, seed,
+         alive, vert, fresh) = regen(
+            work_k, L_samp, L_prev, fold_pend, beta, o, d, pdf_mis, seed,
+            alive, vert, alive_entry)
+
     return L / spp, seed

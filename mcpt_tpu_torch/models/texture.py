@@ -57,3 +57,9 @@ def eval_color(tex: TextureTables, tid, uv):
     textures ignore `uv`."""
     tid = torch.clamp(tid, 0, tex.ttype.shape[0] - 1)
     return take_rows(tex.color0, tid)
+
+
+def eval_scalar(tex: TextureTables, tid, uv):
+    """First channel of :func:`eval_color` (roughness and other scalar
+    parameters)."""
+    return eval_color(tex, tid, uv)[..., 0]

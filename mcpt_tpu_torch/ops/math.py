@@ -1,5 +1,5 @@
 """Vector math kit (counterpart of mcpt_tpu/ops/math.py, the subset the
-main path uses).
+path integrator and the BSDFs use).
 
 Points and vectors are `[..., 3]` tensors; every helper broadcasts over
 leading batch dims so one call shades a whole wavefront.
@@ -55,6 +55,26 @@ def normalize(v):
 
 def sqr(x):
     return x * x
+
+
+def reflect(wi, n):
+    """Mirror `wi` about `n` (csrt src/rtcore/ray.cpp:49-52).  `wi` points
+    into the surface; the result points away on the same side."""
+    return normalize(wi - 2.0 * dot(wi, n, keepdim=True) * n)
+
+
+def refract(wi, n, eta_inv):
+    """Refract `wi` through the interface with normal `n` (csrt
+    src/rtcore/ray.cpp:55-69); `eta_inv` ([...] or scalar) is the IOR of
+    the incident side over the transmitted side.  Returns (ok, wt); ok is
+    False on total internal reflection, where wt is unspecified."""
+    eta_inv = torch.as_tensor(eta_inv, dtype=wi.dtype, device=wi.device)[..., None]
+    cos_theta = torch.abs(dot(wi, n, keepdim=True))
+    k = 1.0 - sqr(eta_inv) * (1.0 - sqr(cos_theta))
+    ok = (k >= 0.0)[..., 0]
+    k = torch.clamp(k, min=0.0)
+    wt = normalize(eta_inv * wi + (eta_inv * cos_theta - torch.sqrt(k)) * n)
+    return ok, wt
 
 
 def mis_weight(pdf1, pdf2):

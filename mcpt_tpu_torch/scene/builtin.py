@@ -12,6 +12,10 @@ scenes go past DENSE_MAX_PRIMS, one down each large-scene route
 * `cornell_mesh_pairs` — the box and eight 13,122-triangle spheres
   (104,976 triangles), a classroom-class scene: the chunk size doubles
   to 128 to stay under 2048 chunks, and thin chunks take the pair route.
+
+`cornell_mesh_materials` is `cornell_mesh_march` dressed in every BSDF
+family, a material-preview scene: all-opaque, one area light, so it
+takes the batched regen body.
 """
 
 from __future__ import annotations
@@ -135,3 +139,63 @@ def cornell_mesh_pairs(res=512, spp=16, depth_max=8, depth_rr=5):
         ring.append((mesh, _xform(scale=(0.17, 0.17, 0.17),
                                   t=(0.6 * np.cos(a), 1.45, 0.6 * np.sin(a)))))
     return cornell_box(res, spp, depth_max, depth_rr, meshes=ring)
+
+
+def cornell_mesh_materials(res=512, spp=16, depth_max=8, depth_rr=5):
+    """`cornell_mesh_march` (51,236 triangles, route march) with every BSDF
+    family in view and a 2-triangle thin-dielectric pane in front of the
+    short box (51,238 triangles):
+
+    * sphere: rough GGX conductor, isotropic alpha 0.2, gold-like
+      reflectivity and edge tint (Kulla-Conty on);
+    * tall box: rough dielectric, eta 1.5, alpha 0.1;
+    * short box: clear-coated conductor (copper-like, alpha 0.3, a coat of
+      weight 1 and alpha 0.05);
+    * floor: rough plastic, alpha 0.15, eta 1.5;
+    * back wall: Oren-Nayar, sigma 0.5;
+    * side walls and ceiling: diffuse, as in the Cornell box;
+    * pane: thin dielectric, eta 1.5, alpha 0.05.
+
+    The glass box and the pane stand 0.01 above the floor: a transparent
+    solid whose bottom face lay in the floor's plane would give the rays
+    inside it two hits at one t, one face seen from each side, and which
+    one wins would be decided by rounding (z-fighting)."""
+    cfg = cornell_mesh_march(res, spp, depth_max, depth_rr)
+    tex, bsdfs = cfg.textures, cfg.bsdfs
+    white = bsdfs[0].id_diffuse_reflectance
+
+    def add(**kw):
+        bsdfs.append(BsdfInfo(**kw))
+        return len(bsdfs) - 1
+
+    def rough(a):
+        return tex.add_constant([a] * 3)
+
+    gold = add(btype=BsdfType.CONDUCTOR, id_roughness_u=rough(0.2),
+               id_roughness_v=rough(0.2),
+               reflectivity=np.array([0.944, 0.776, 0.373], np.float32),
+               edgetint=np.array([0.998, 0.981, 0.751], np.float32))
+    glass = add(btype=BsdfType.DIELECTRIC, eta=1.5,
+                id_roughness_u=rough(0.1), id_roughness_v=rough(0.1))
+    coated = add(btype=BsdfType.CLEARCOAT_CONDUCTOR,
+                 id_roughness_u=rough(0.3), id_roughness_v=rough(0.3),
+                 reflectivity=np.array([0.955, 0.638, 0.538], np.float32),
+                 edgetint=np.array([0.997, 0.88, 0.72], np.float32),
+                 clear_coat=1.0, id_coat_roughness=rough(0.05))
+    plastic = add(btype=BsdfType.PLASTIC, eta=1.5,
+                  id_diffuse_reflectance=white, id_roughness=rough(0.15))
+    oren = add(btype=BsdfType.ROUGH_DIFFUSE, id_diffuse_reflectance=white,
+               id_roughness=rough(0.5))
+    pane = add(btype=BsdfType.THIN_DIELECTRIC, eta=1.5,
+               id_roughness_u=rough(0.05), id_roughness_v=rough(0.05))
+    # instances of cornell_box: floor 0, back wall 2, short box 5, tall
+    # box 6, the sphere 8
+    for inst, row in ((0, plastic), (2, oren), (5, coated), (6, glass),
+                      (8, gold)):
+        cfg.instances[inst].id_bsdf = row
+    cfg.instances[6].to_world = _xform(scale=(0.3, 0.6, 0.3), rot_y=17,
+                                       t=(-0.35, 0.61, -0.3))
+    cfg.instances.append(InstanceInfo(
+        shape="rectangle", id_bsdf=pane,
+        to_world=_xform(scale=(0.35, 0.3, 1.0), t=(0.35, 0.31, 0.85))))
+    return cfg

@@ -1,14 +1,15 @@
 """Scene commit: lower the RendererConfig IR to device tables
-(counterpart of mcpt_tpu/scene/compile.py::compile_scene, :182), reduced
-to the main path: triangle geometry, diffuse and area-light BSDFs with
-constant textures, and the emissive-triangle table for NEE.
+(counterpart of mcpt_tpu/scene/compile.py::compile_scene, :182) for
+triangle scenes lit by area lights: the geometry, every BSDF family with
+constant textures, the Kulla-Conty tables where a conductor or a
+dielectric needs them, and the emissive-triangle table for NEE.
 
 NEE samples one global CDF over emissive triangles with
 P(tri) = (w_L / sum_w) * (area_tri / area_L), so pdf_area = P(light) /
 area_light — the reference's identity (csrt path.cpp:225-228).
 
-Everything outside the slice raises NotImplementedError naming its
-ROADMAP item, rather than rendering something else.
+Everything outside the port's slices raises NotImplementedError naming
+its ROADMAP item, rather than rendering something else.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mcpt_tpu_torch.models import kulla_conty
 from mcpt_tpu_torch.models.bsdf import BsdfTables, build_bsdf_tables
 from mcpt_tpu_torch.models.texture import TextureTables
 from mcpt_tpu_torch.ops.march_sweep import super_boxes
@@ -47,7 +49,7 @@ class EmissiveTris(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class SceneData:
     """Everything the integrator reads on the device (csrt
-    IntegratorData, integrator.hpp:29-69), main-path subset."""
+    IntegratorData, integrator.hpp:29-69), for the port's slices."""
 
     geom: Geometry
     tex: TextureTables
@@ -55,8 +57,14 @@ class SceneData:
     map_inst_bsdf: torch.Tensor       # [I] int32 (-1 = none)
     map_inst_light_pdf: torch.Tensor  # [I] f32 P(light)/area, 0 if no light
     em: EmissiveTris
+    #: Kulla-Conty E(mu, alpha) [128, 128] and E_avg(alpha) [128]: the
+    #: tables where a conductor or a dielectric is present, else zeros
+    brdf_avg: torch.Tensor
+    albedo_avg: torch.Tensor
     n_emissive: int                   # emissive triangles
     present_types: tuple              # BsdfType codes in the scene
+    has_opacity: bool = False         # some BSDF has an opacity map
+    all_opaque: bool = True           # every real prim blocks shadow rays
 
 
 def _check_slice(config: RendererConfig):
@@ -83,6 +91,7 @@ def _check_slice(config: RendererConfig):
 def compile_scene(config: RendererConfig, device="cuda") -> SceneData:
     _check_slice(config)
     device = torch.device(device)
+    bsdf = build_bsdf_tables(config.bsdfs, device)
 
     # --- geometry: every instance -> world-space triangle soup
     all_pos, all_nrm, all_uv, all_tan, all_inst = [], [], [], [], []
@@ -178,15 +187,27 @@ def compile_scene(config: RendererConfig, device="cuda") -> SceneData:
         pdf_area=dev(em_pdfa),
         bsdf_id=dev(em_bsdf),
     )
+    # --- Kulla-Conty tables (mcpt_tpu/scene/compile.py:396-403)
+    if any(b.btype in (BsdfType.CONDUCTOR, BsdfType.DIELECTRIC)
+           for b in config.bsdfs):
+        brdf_avg, albedo_avg = kulla_conty.get_tables(device)
+    else:
+        res = kulla_conty.LUT_RESOLUTION
+        brdf_avg = torch.zeros((res, res), device=device)
+        albedo_avg = torch.zeros((res,), device=device)
     return SceneData(
         geom=geom,
         tex=config.textures.build(device),
-        bsdf=build_bsdf_tables(config.bsdfs, device),
+        bsdf=bsdf,
         map_inst_bsdf=dev(map_inst_bsdf),
         map_inst_light_pdf=dev(map_inst_light_pdf),
         em=em,
+        brdf_avg=brdf_avg,
+        albedo_avg=albedo_avg,
         n_emissive=len(em_rows),
         present_types=tuple(sorted({int(b.btype) for b in config.bsdfs})),
+        has_opacity=any(b.id_opacity >= 0 for b in config.bsdfs),
+        all_opaque=bool(tri_opaque.all()),
     )
 
 
@@ -207,8 +228,10 @@ def scene_from_arrays(arrays: dict, device="cuda") -> SceneData:
     scene bounds from the BVH root (geom.node_min[0], geom.node_max[0]),
     the super-chunk unions from the chunk boxes.
     The static facts follow from the tables: emissive rows have a
-    positive pdf_area, and the present BSDF types are those of the
-    table's rows."""
+    positive pdf_area, the present BSDF types are those of the table's
+    rows, opacity maps are the rows' opacity_tid, and the real prims —
+    the first ones of the sorted order, the march pack's — are opaque or
+    not by geom.opaque."""
     device = torch.device(device)
     arrays = dict(arrays)
     if "geom.march_prim" not in arrays:
@@ -228,6 +251,7 @@ def scene_from_arrays(arrays: dict, device="cuda") -> SceneData:
     supers = super_boxes(get("geom.march_min"), get("geom.march_max"))
     geom = group(Geometry, "geom", march_super_min=supers[0],
                  march_super_max=supers[1])
+    n_real = int(np.asarray(arrays["geom.march_prim"]).max()) + 1
     return SceneData(
         geom=geom._replace(packed_tris=geom.packed_tris.reshape(-1, 12)),
         tex=group(TextureTables, "tex"),
@@ -235,6 +259,10 @@ def scene_from_arrays(arrays: dict, device="cuda") -> SceneData:
         map_inst_bsdf=get("map_inst_bsdf"),
         map_inst_light_pdf=get("map_inst_light_pdf"),
         em=group(EmissiveTris, "em"),
+        brdf_avg=get("brdf_avg"),
+        albedo_avg=get("albedo_avg"),
         n_emissive=int((np.asarray(arrays["em.pdf_area"]) > 0).sum()),
         present_types=tuple(sorted(set(np.asarray(arrays["bsdf.btype"]).tolist()))),
+        has_opacity=bool((np.asarray(arrays["bsdf.opacity_tid"]) >= 0).any()),
+        all_opaque=bool(np.asarray(arrays["geom.opaque"])[:n_real].all()),
     )

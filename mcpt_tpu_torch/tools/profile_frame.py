@@ -1,11 +1,12 @@
 """Where one frame of the main path spends its time on the card.
 
     python -m mcpt_tpu_torch.tools.profile_frame [--res 512] [--spp 16]
-        [--scene cornell|sphere|march|pairs] [--frames 1]
+        [--scene cornell|sphere|march|pairs|materials] [--frames 1]
 
 Renders a built-in scene (scene/builtin.py: the Cornell box, the box with
-the 16200-triangle sphere, or one of the two mesh scenes past
-DENSE_MAX_PRIMS, one per large-scene route) once to warm up and times
+the 16200-triangle sphere, one of the two mesh scenes past
+DENSE_MAX_PRIMS, one per large-scene route, or the march scene in every
+BSDF family) once to warm up and times
 `--frames` frames with the host clock (their median is the frame wall).
 Then it records one tile-chunk of that frame (the first 64k-pixel tile,
 the first spp chunk: one shade_regen call, 1/8 of a 512x512 16-spp
@@ -14,8 +15,10 @@ frame) under torch.profiler
 of the same tile-chunk's unprofiled wall time, the number of device
 activities (kernels, copies, sets) and the kernels with the most device
 time, and the device time of each of the port's kernels (K1 dense sweep,
-K2 march, K3 corridor, K4 pair sweep).  The last line is the same as one
-JSON object.  Needs a CUDA device.
+K2 march, K3 corridor, K4 pair sweep).  It names the regen body the
+frame takes (batched or unbatched; MCPT_BATCH_TRACE=0 forces the
+unbatched one).  The last line is the same as one JSON object.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ def main(argv=None) -> int:
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--scene", default="cornell",
-                    choices=("cornell", "sphere", "march", "pairs"))
+                    choices=("cornell", "sphere", "march", "pairs",
+                             "materials"))
     ap.add_argument("--frames", type=int, default=1,
                     help="frames timed after the warm-up (median reported)")
     args = ap.parse_args(argv)
@@ -55,7 +59,8 @@ def main(argv=None) -> int:
     make = {"cornell": builtin.cornell_box,
             "sphere": lambda **kw: builtin.cornell_box(sphere=True, **kw),
             "march": builtin.cornell_mesh_march,
-            "pairs": builtin.cornell_mesh_pairs}[args.scene]
+            "pairs": builtin.cornell_mesh_pairs,
+            "materials": builtin.cornell_mesh_materials}[args.scene]
     cfg = make(res=args.res, spp=args.spp)
     r = Renderer(cfg, device="cuda")
 
@@ -76,7 +81,7 @@ def main(argv=None) -> int:
         + ", ".join(f"{w:.3f}" for w in walls) + ")" if len(walls) > 1 else ""),
         flush=True)
 
-    from mcpt_tpu_torch.integrators.path import shade_regen
+    from mcpt_tpu_torch.integrators.path import _use_batched_trace, shade_regen
 
     n_pix = args.res * args.res
     tile = min(1 << 16, n_pix)
@@ -111,9 +116,10 @@ def main(argv=None) -> int:
     kern = {k: sum(s for key, s, _ in rows if fn in key)
             for k, fn in KERNELS.items()}
     name = torch.cuda.get_device_name(0)
-    print(f"device {name}; scene {args.scene}, frame {args.res}x{args.res} "
-          f"{args.spp}spp d8; profiled one tile-chunk of {tile} pixels x "
-          f"{chunk} spp")
+    body = "batched" if _use_batched_trace(r.scene) else "unbatched"
+    print(f"device {name}; scene {args.scene}, {body} body, frame "
+          f"{args.res}x{args.res} {args.spp}spp d8; profiled one tile-chunk "
+          f"of {tile} pixels x {chunk} spp")
     print(f"tile-chunk wall {chunk_wall:.3f} s ({prof_wall:.3f} s profiled); "
           f"device busy {busy:.3f} s, idle share {1 - busy / chunk_wall:.3f}; "
           f"{launches} device activities; "
@@ -122,7 +128,7 @@ def main(argv=None) -> int:
         print(f"  {s * 1e3:9.2f} ms {count:7d}x  {key[:90]}")
     print(json.dumps({
         "device": name, "res": args.res, "spp": args.spp,
-        "scene": args.scene, "wall_s": wall, "walls_s": walls,
+        "scene": args.scene, "body": body, "wall_s": wall, "walls_s": walls,
         "profiled_tile": tile, "profiled_spp": chunk,
         "tile_chunk_wall_s": chunk_wall, "profiled_wall_s": prof_wall,
         "device_busy_s": busy, "idle_share": 1 - busy / chunk_wall,

@@ -4,8 +4,9 @@ The card's machine has no jax, jaxlib or flax, and importing anything of
 mcpt_tpu runs mcpt_tpu/__init__.py, which imports jax.  A subprocess
 blocks all four with a meta-path finder that raises ImportError, then
 imports every module of the port and chip_smoke, and renders on the CPU
-a 16x16, 1-spp Cornell box and an 8x8 frame of each mesh scene, one down
-each large-scene route.  A scan of the sources catches an import
+a 16x16, 1-spp Cornell box and an 8x8 frame of each mesh scene: one down
+each large-scene route, and the materials scene (every BSDF family, the
+batched body).  A scan of the sources catches an import
 statement of any of them, even one on a path the subprocess does not run.
 """
 
@@ -43,11 +44,13 @@ for name in names:
 import chip_smoke
 
 from mcpt_tpu_torch.render.renderer import Renderer
-from mcpt_tpu_torch.scene.builtin import cornell_box, cornell_mesh_march, cornell_mesh_pairs
+from mcpt_tpu_torch.scene.builtin import (
+    cornell_box, cornell_mesh_march, cornell_mesh_materials, cornell_mesh_pairs)
 from mcpt_tpu_torch.ops.traversal import resolved_strategy
 img = Renderer(cornell_box(res=16, spp=1), device="cpu").render(spp=1)
 assert img.shape == (16, 16, 3) and (img >= 0).all() and img.mean() > 0, img.mean()
-for make, route in ((cornell_mesh_march, "march"), (cornell_mesh_pairs, "pairs")):
+for make, route in ((cornell_mesh_march, "march"), (cornell_mesh_pairs, "pairs"),
+                    (cornell_mesh_materials, "march")):
     r = Renderer(make(res=8, spp=1, depth_max=3), device="cpu")
     assert resolved_strategy(r.scene.geom) == route
     img = r.render(spp=1)

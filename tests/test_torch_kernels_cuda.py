@@ -264,6 +264,26 @@ def test_march_sweep_kernel_on_the_overflow_fallback(monkeypatch, setting):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(K2_SETTINGS))
+def test_march_sweep_kernel_on_the_batched_input(monkeypatch, setting):
+    """The batched regen body's input on the materials scene
+    (chip_smoke.batched_input): 65536 continuations and 65536 shadow
+    segments with finite t_max, classes 0-3, in block order; closest hit
+    (t bit-equal, prim differing only on exact-t ties) and any hit."""
+    from chip_smoke import batched_input
+
+    dev = _cuda()
+    for k, v in K2_SETTINGS[setting].items():
+        monkeypatch.setenv(k, v)
+    _, g, args = batched_input(dev)
+    assert len(args[0]) == 131072
+    shadow = (args[3] > 0) & (args[3] < 1e30)
+    assert int(shadow.sum()) > 0
+    for any_hit in (False, True):
+        _check_march(args, g, any_hit, (g.march_super_min, g.march_super_max))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2, 8, 14])
 @pytest.mark.parametrize("kind", ["soup", *CORRIDOR_CASES])
 def test_corridor_kernel_equals_plain(monkeypatch, kind, k):

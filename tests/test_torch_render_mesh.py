@@ -3,9 +3,10 @@ tests/test_batched_regen.py's box with a 21632-triangle floor — through
 the port's march and pair routes on the CPU, against
 mcpt_tpu.render.renderer.Renderer from the same seeds.
 
-The reference runs with MCPT_BATCH_TRACE=0, so both sides run the
-unbatched regen body (the batched one agrees with it to float tolerance,
-tests/test_batched_regen.py, and is a later slice).
+Both packages run with MCPT_BATCH_TRACE=0 here, so both take the
+unbatched regen body; the batched body, which both take on this scene by
+default, is held to the reference's and to the unbatched one in
+tests/test_torch_batched.py.
 
 * Direct light (depth_max=2): per pixel, rtol 1e-4, atol 1e-5, on every
   pixel: the sample streams are the same, only f32 rounding differs.

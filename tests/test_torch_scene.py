@@ -3,8 +3,10 @@
 One scene description is built with either package's IR (the converters
 below copy a RendererConfig field for field), compiled by both packages,
 and every leaf of the port's SceneData must EQUAL the reference's: the
-host-side commit is the same numpy arithmetic.  Camera rays are held at
-rtol 1e-6, atol 1e-6 (one normalize in f32).
+host-side commit is the same numpy arithmetic.  The Kulla-Conty tables,
+which the port computes with torch, are held at the atol of
+tests/test_torch_bsdf.py (KC_ATOL).  Camera rays are held at rtol 1e-6,
+atol 1e-6 (one normalize in f32).
 
 The helpers here (config converters, leaf flattening) are shared by the
 other tests/test_torch_*.py files.
@@ -22,14 +24,18 @@ import bench
 import mcpt_tpu.scene.ir as jir
 import mcpt_tpu_torch.scene.ir as tir
 from mcpt_tpu.models.texture import TextureBuilder as JaxTextureBuilder
+from mcpt_tpu.scene.ir import BsdfInfo as JaxBsdfInfo
+from mcpt_tpu.scene.ir import BsdfType as JaxBsdfType
+from mcpt_tpu.scene.ir import InstanceInfo as JaxInstanceInfo
 from mcpt_tpu.render.camera import generate_rays as jax_generate_rays
 from mcpt_tpu.render.camera import make_camera as jax_make_camera
 from mcpt_tpu.scene.compile import compile_scene as jax_compile_scene
 from mcpt_tpu_torch.models.texture import TextureBuilder as TorchTextureBuilder
 from mcpt_tpu_torch.render.camera import generate_rays, make_camera
 from mcpt_tpu_torch.render.renderer import Renderer
-from mcpt_tpu_torch.scene.builtin import cornell_box, uv_sphere_mesh
+from mcpt_tpu_torch.scene.builtin import _xform, cornell_box, uv_sphere_mesh
 from mcpt_tpu_torch.scene.compile import compile_scene, scene_from_arrays
+from tests.test_batched_regen import make_mesh_box_scene
 from tests.test_integrator import make_box_scene
 
 
@@ -101,9 +107,64 @@ def torch_scene_arrays(scene) -> dict:
         tables = getattr(scene, group)
         for f in tables._fields:
             out[f"{group}.{f}"] = getattr(tables, f).cpu().numpy()
-    for f in ("map_inst_bsdf", "map_inst_light_pdf"):
+    for f in ("map_inst_bsdf", "map_inst_light_pdf", "brdf_avg",
+              "albedo_avg"):
         out[f] = getattr(scene, f).cpu().numpy()
     return out
+
+
+#: the Kulla-Conty tables' tolerance (tests/test_torch_bsdf.py)
+KC_ATOL = {"brdf_avg": 5e-4, "albedo_avg": 1e-5}
+
+
+def materials_box_scene(spp=8, res=12, depth_max=8):
+    """tests/test_batched_regen.py's box (a 21,632-triangle floor, past
+    DENSE_MAX_PRIMS) with every BSDF family in view, in the reference's
+    IR: a plastic floor, a rough conductor, a rough dielectric and a
+    Beckmann clear-coated conductor cube, an Oren-Nayar back wall and a
+    thin-dielectric pane; the diffuse row stays in the table.  The glass
+    cube stands 0.01 above the floor, so that no face of it lies in the
+    floor's plane (cornell_mesh_materials says why)."""
+    cfg = make_mesh_box_scene(spp=spp, res=res, depth_max=depth_max)
+    tex, bsdfs = cfg.textures, cfg.bsdfs
+    white = bsdfs[0].id_diffuse_reflectance
+
+    def add(**kw):
+        bsdfs.append(JaxBsdfInfo(**kw))
+        return len(bsdfs) - 1
+
+    def rough(a):
+        return tex.add_constant([a] * 3)
+
+    def rgb(*c):
+        return np.array(c, np.float32)
+
+    cfg.instances[0].id_bsdf = add(
+        btype=JaxBsdfType.PLASTIC, id_diffuse_reflectance=white,
+        id_roughness=rough(0.2))
+    metal = add(btype=JaxBsdfType.CONDUCTOR, id_roughness_u=rough(0.25),
+                id_roughness_v=rough(0.25), reflectivity=rgb(0.9, 0.7, 0.4),
+                edgetint=rgb(1.0, 0.9, 0.7))
+    glass = add(btype=JaxBsdfType.DIELECTRIC, eta=1.5,
+                id_roughness_u=rough(0.15), id_roughness_v=rough(0.15))
+    coat = add(btype=JaxBsdfType.CLEARCOAT_CONDUCTOR, ndf="beckmann",
+               id_roughness_u=rough(0.3), id_roughness_v=rough(0.3),
+               reflectivity=rgb(0.95, 0.64, 0.54), edgetint=rgb(1, 0.9, 0.7),
+               clear_coat=1.0, id_coat_roughness=rough(0.05))
+    wall = add(btype=JaxBsdfType.ROUGH_DIFFUSE, id_diffuse_reflectance=white,
+               id_roughness=rough(0.5))
+    pane = add(btype=JaxBsdfType.THIN_DIELECTRIC, eta=1.5,
+               id_roughness_u=rough(0.05), id_roughness_v=rough(0.05))
+    for bsdf, shape, kw in (
+        (metal, "cube", dict(scale=(0.25,) * 3, t=(-0.7, 0.25, 0.0))),
+        (glass, "cube", dict(scale=(0.25,) * 3, rot_y=30, t=(0.0, 0.26, -0.4))),
+        (coat, "cube", dict(scale=(0.25,) * 3, t=(0.7, 0.25, 0.0))),
+        (wall, "rectangle", dict(scale=(2.0, 2.0, 1.0), t=(0.0, 1.0, -1.5))),
+        (pane, "rectangle", dict(scale=(0.3, 0.3, 1.0), t=(0.3, 0.35, 0.7))),
+    ):
+        cfg.instances.append(JaxInstanceInfo(shape=shape, id_bsdf=bsdf,
+                                             to_world=_xform(**kw)))
+    return cfg
 
 
 def cornell_torch_config(res=16, spp=4, depth_max=8, sphere=False):
@@ -114,6 +175,7 @@ SCENES = {
     "make_box_scene": lambda: to_torch_config(make_box_scene(spp=4, res=16)),
     "fallback_scene": lambda: to_torch_config(bench.fallback_scene()),
     "cornell_box": cornell_torch_config,
+    "materials_box_scene": lambda: to_torch_config(materials_box_scene()),
 }
 
 
@@ -124,13 +186,21 @@ def test_compile_scene_leaves_equal(name):
     ref = jax_scene_arrays(jscene)
     scene = compile_scene(tcfg, device="cpu")
     got = torch_scene_arrays(scene)
-    assert len(got) == 47
+    assert len(got) == 68
     for key, value in got.items():
         want = reference_leaf(ref, key)
         assert value.dtype == want.dtype, key
-        np.testing.assert_array_equal(value, want, err_msg=key)
+        if key in KC_ATOL and want.any():
+            np.testing.assert_allclose(value, want, rtol=0, atol=KC_ATOL[key],
+                                       err_msg=key)
+        else:
+            np.testing.assert_array_equal(value, want, err_msg=key)
     assert scene.n_emissive == jscene.n_emissive > 0
     assert scene.present_types == jscene.present_types
+    assert scene.has_opacity == jscene.has_opacity
+    assert scene.all_opaque == jscene.all_opaque
+    if name == "materials_box_scene":
+        assert len(scene.present_types) == 8 and scene.brdf_avg.any()
 
 
 def test_scene_from_arrays_rebuilds_the_reference_scene():
@@ -143,6 +213,30 @@ def test_scene_from_arrays_rebuilds_the_reference_scene():
                                       err_msg=key)
     assert rebuilt.n_emissive == direct.n_emissive
     assert rebuilt.present_types == direct.present_types
+
+
+def test_scene_from_arrays_carries_every_family_and_renders_the_same():
+    """The reference's compiled materials scene, carried across: every
+    leaf and static fact equals the port's own commit (the Kulla-Conty
+    tables are the reference's), and the port renders it as it renders
+    its own commit given those tables — bit for bit."""
+    jcfg = materials_box_scene(spp=2, res=8, depth_max=4)
+    rebuilt = scene_from_arrays(jax_scene_arrays(jax_compile_scene(jcfg)),
+                                device="cpu")
+    r = Renderer(to_torch_config(jcfg), device="cpu")
+    direct = dataclasses.replace(r.scene, brdf_avg=rebuilt.brdf_avg,
+                                 albedo_avg=rebuilt.albedo_avg)
+    want = torch_scene_arrays(direct)
+    for key, value in torch_scene_arrays(rebuilt).items():
+        np.testing.assert_array_equal(value, want[key], err_msg=key)
+    for fact in ("n_emissive", "present_types", "has_opacity", "all_opaque"):
+        assert getattr(rebuilt, fact) == getattr(direct, fact), fact
+    images = []
+    for scene in (direct, rebuilt):
+        r.scene = scene
+        images.append(r.render(spp=2))
+    assert images[0].mean() > 0.05
+    np.testing.assert_array_equal(images[0], images[1])
 
 
 @pytest.mark.parametrize("res", [(16, 16), (24, 10)])
@@ -166,7 +260,7 @@ def test_camera_rays_match(res):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("conductor", "item 13"),
+    ("opacity", "item 14"),
     ("emitter", "item 14"),
     ("sphere", "item 15"),
     ("volpath", "items 16-17"),
@@ -174,8 +268,8 @@ def test_camera_rays_match(res):
 ])
 def test_out_of_slice_scenes_are_refused(monkeypatch, case, item):
     cfg = cornell_torch_config()
-    if case == "conductor":
-        cfg.bsdfs[0] = tir.BsdfInfo(btype=tir.BsdfType.CONDUCTOR)
+    if case == "opacity":
+        cfg.bsdfs[0].id_opacity = cfg.textures.add_constant([0.5] * 3)
     elif case == "emitter":
         cfg.emitters.append(object())
     elif case == "sphere":
