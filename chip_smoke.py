@@ -26,7 +26,9 @@ Phases, one short line each:
                  pair route's overflow-only fallback input on the pairs
                  scene, and the batched body's input on the materials scene
                  (65536 continuations and 65536 shadow segments with finite
-                 t_max, coherence classes 0-3: 131072 lanes) — each at four
+                 t_max, coherence classes 0-3: 131072 lanes) and on the
+                 envmap scene (its shadow segments toward envmap samples,
+                 t_max = MAX_FLOAT/2 - 1e-4) — each at four
                  settings (defaults, one chunk per pick, super-chunk cull
                  off, interval phase A on); each time beside its bound and
                  the time before the redesign; camera and bounce rays
@@ -50,15 +52,33 @@ Phases, one short line each:
                  side: both walls with their spread
   render-materials the march scene in every BSDF family plus a thin pane
                  (cornell_mesh_materials, 51,238 triangles) at 512x512, 16
-                 spp, depth 8 after a warm-up frame, through the batched body
-                 and K2; then a 64x64 card render held against the CPU render
+                 spp, depth 8 after a 1-spp warm-up frame, through the
+                 batched body and K2; then a 64x64 card render held against
+                 the CPU render
   render-pairs   the same for the 105,012-triangle pairs scene, through K3
                  and K4 (and K2 for corridors longer than K)
   pairs-by-march the pairs scene's frame again with MCPT_TRAVERSAL=march,
                  beside render-pairs' wall: which route is faster on the card
+  render-envmap  the matpreview-class scene lit by a 2048x1024 HDR envmap
+                 alone (envmap_matpreview: the 51,200-triangle sphere in
+                 rough gold, a bump-mapped cube, a bitmap floor) at 512x512,
+                 16 spp, depth 8 after a warm-up frame, through the batched
+                 body and K2; the envmap's alias build timed; then a 64x64
+                 card render held against the CPU render
+  render-lights  the emitter and texture test scene (lights_showcase:
+                 analytic spheres, a disk and a cylinder, glossy plates, a
+                 checkerboard, alpha-masked quads, point, spot, directional,
+                 sun and constant-sky lights) the same way but after a 1-spp
+                 warm-up frame, through K1 and
+                 the unbatched body: every shadow query walks its alpha
+                 crossings by closest hits, so K1 makes 1 + 6 x 4 closest-hit
+                 launches a wavefront iteration and no any-hit one
   device-times   each kernel's device time per launch at its timed input,
                  and K1's shape sweep: every shape's device time at each
-                 table size of kernel-K1 (the evidence for shape_for)
+                 table size of kernel-K1 (the evidence for shape_for); then
+                 one tile-chunk of render-envmap's and render-lights' frames
+                 under torch.profiler: device busy time, idle share against
+                 the same tile-chunk unprofiled, device activities
 Kernel times ("ms") are the median time between CUDA events around one
 wrapper call (cuda_ms), which also counts the wrapper's host time; each
 kernel's device time per launch from torch.profiler (kernel_ms) is taken
@@ -66,7 +86,8 @@ last, after every frame, and printed beside it ("device_ms").
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero;
 without a CUDA device the script exits 1 before printing any result.
-A watchdog ends the run after WATCHDOG_S seconds, naming the phase.
+A watchdog ends the run after WATCHDOG_S seconds, naming the phase; each
+phase prints its seconds as it ends.
 """
 
 import contextlib
@@ -99,6 +120,16 @@ K1_OPS_PER_PAIR = 46
 SLAB_OPS = 27
 
 _phase = ["start"]
+_phase_t0 = []
+
+
+def begin(name):
+    """Enter phase `name`, printing how long the one before it took."""
+    now = time.perf_counter()
+    if _phase_t0:
+        say(f"phase {_phase[0]}: {now - _phase_t0[0]:.1f} s")
+    _phase[0] = name
+    _phase_t0[:] = [now]
 
 
 def say(msg):
@@ -435,6 +466,53 @@ def _k1_pair(o, d, t_min, t_max, tris, label, refs=None, shape=None):
     return errs
 
 
+def lights_inputs(dev):
+    """K1's inputs on the lights scene at the main path's shape: 65536
+    camera rays of a 512x512 frame (every 4th pixel), first-bounce rays
+    from their triangle hits in random directions (dead where the camera
+    ray missed), and second steps of the alpha walk: segments from those
+    hits toward the point light whose t_min lies just past the segment's
+    first triangle hit (dead where it has none).  Returns (triangles,
+    [(label, o, d, t_min, t_max)])."""
+    import torch
+
+    from mcpt_tpu_torch.ops import dense_sweep as ds
+    from mcpt_tpu_torch.ops.math import EPSILON_DISTANCE, MAX_FLOAT
+    from mcpt_tpu_torch.render.camera import generate_rays
+    from mcpt_tpu_torch.scene.builtin import lights_showcase
+
+    scene, cam = _scene(lights_showcase, dev)
+    tris = scene.geom.packed_tris
+    pix = torch.arange(0, cam.width * cam.height, 4, device=dev)[:TILE]
+    n = pix.shape[0]
+    r = np.random.default_rng(5)
+    u = torch.as_tensor(r.uniform(size=n).astype(np.float32), device=dev)
+    v = torch.as_tensor(r.uniform(size=n).astype(np.float32), device=dev)
+    o_c, d_c = generate_rays(cam, pix, u, v)
+    o_c, d_c = o_c.contiguous(), d_c.contiguous()
+    lo = torch.full((n,), EPSILON_DISTANCE, device=dev)
+    hi = torch.full((n,), MAX_FLOAT, device=dev)
+    first = ds.dense_sweep_plain(o_c, d_c, lo, hi, tris)
+    o_b = (o_c + torch.clamp(first.t, max=1e8)[:, None] * d_c).contiguous()
+    d_b = torch.as_tensor(r.normal(size=(n, 3)).astype(np.float32), device=dev)
+    d_b = (d_b / d_b.norm(dim=-1, keepdim=True)).contiguous()
+    hi_b = torch.where(first.valid, hi, torch.zeros_like(hi))
+    to_l = scene.emitters.position[0] - o_b
+    dist = to_l.norm(dim=-1)
+    d_s = (to_l / dist[:, None]).contiguous()
+    t_hi = torch.where(first.valid, dist - EPSILON_DISTANCE,
+                       torch.zeros_like(dist))
+    step1 = ds.dense_sweep_plain(o_b, d_s, lo, t_hi, tris)
+    if not bool(step1.valid.any()):
+        raise AssertionError("lights inputs: no walk segment crosses a "
+                             "triangle")
+    t_lo = torch.where(step1.valid, step1.t + EPSILON_DISTANCE, lo)
+    t_hi2 = torch.where(step1.valid, t_hi, torch.zeros_like(t_hi))
+    return tris, [("lights camera", o_c, d_c, lo, hi),
+                  ("lights bounce", o_b, d_b, lo, hi_b),
+                  ("lights walk", o_b, d_s, t_lo, t_hi2)]
+
+
 def phase_kernel(dev):
     import torch
 
@@ -502,6 +580,17 @@ def phase_kernel(dev):
         f"plain; bounce sweep {ms_b:.4f} ms between events (plain "
         f"{plain_b:.3f} ms)")
 
+    # (c) the lights scene: camera, bounce and alpha-walk rays
+    tris_c, lights = lights_inputs(dev)
+    for label, *rays in lights:
+        for err, _, _ in _k1_pair(*rays, tris_c, f"K1(c) {label}"):
+            max_err = max(max_err, err)
+    walk = lights[-1][1:]
+    ms_c = cuda_ms(lambda: ds.dense_sweep(*walk, tris_c), reps=20)
+    say(f"kernel-K1(c): lights scene {TILE}x{tris_c.shape[0]} camera, bounce "
+        f"and walk rays ({int((walk[3] > walk[2]).sum())} live) match plain; "
+        f"walk sweep {ms_c:.4f} ms between events")
+
     rec = {
         "name": "dense_sweep", "route": "cuda",
         "source": "mcpt_tpu_torch/csrc/dense_sweep.cu",
@@ -511,6 +600,7 @@ def phase_kernel(dev):
         "bound_by": bound_by, "library_ms": None,
         "shape": f"{n} rays x {p} tris",
         "cornell_ms": ms_b, "cornell_plain_ms": plain_b,
+        "lights_walk_ms": ms_c,
         "sweep_device_ms": {},
     }
     time_on_device(rec, "device_ms",
@@ -714,7 +804,7 @@ BLOCK_SWEEP = (32, 64, 128, 256)
 #: fallback launch per profile_frame (over all N rays, ~1% live); the
 #: camera and soup sets were not timed
 K2_BEFORE_MS = {"camera": None, "bounce": 8.701, "soup": None,
-                "fallback": 6.4, "batched": None}
+                "fallback": 6.4, "batched": None, "envmap batched": None}
 
 
 @contextlib.contextmanager
@@ -784,25 +874,29 @@ def fallback_input(dev):
     return ("fallback", g, _march_args(g, o[idx], d[idx], lo[idx], hi[idx]))
 
 
-def batched_input(dev):
-    """K2's input in the batched regen body on the materials scene, at its
-    shape: 65536 continuations — the first half fresh camera rays (class
-    0), the second half first-bounce rays (class 1) — and 65536 shadow
-    segments from the camera rays' hits toward points sampled on the area
-    light, t_max = max(dist - EPSILON_DISTANCE, 0) where the camera ray hit
-    (else 0), half in class 2 and half in class 3, the class of a scene's
-    second and later queries, so that the sort sees the whole 2-bit class
-    field; t_min the default.  In the body's block order.  Returns (label,
-    geometry, args)."""
+def batched_input(dev, envmap=False):
+    """K2's input in the batched regen body on the materials scene (or
+    with `envmap`, on the envmap scene), at its shape: 65536 continuations
+    — the first half fresh camera rays (class 0), the second half
+    first-bounce rays (class 1) — and 65536 shadow segments from the
+    camera rays' hits toward points sampled on the area light (toward
+    envmap samples, dist = MAX_FLOAT/2), t_max = max(dist -
+    EPSILON_DISTANCE, 0) where the camera ray hit (else 0), half in class
+    2 and half in class 3, the class of a scene's second and later
+    queries, so that the sort sees the whole 2-bit class field; t_min the
+    default.  In the body's block order.  Returns (label, geometry, args)."""
     import torch
 
     from mcpt_tpu_torch.integrators.path import _sample_area_light
+    from mcpt_tpu_torch.models.emitter import sample_envmap
     from mcpt_tpu_torch.ops import march_sweep as msw
     from mcpt_tpu_torch.ops.math import EPSILON_DISTANCE
     from mcpt_tpu_torch.ops.traversal import march_order
-    from mcpt_tpu_torch.scene.builtin import cornell_mesh_materials
+    from mcpt_tpu_torch.scene.builtin import (cornell_mesh_materials,
+                                              envmap_matpreview)
 
-    scene, cam = _scene(cornell_mesh_materials, dev)
+    scene, cam = _scene(envmap_matpreview if envmap
+                        else cornell_mesh_materials, dev)
     g = scene.geom
     (_, o_c, d_c, lo, hi), (_, o_b, d_b, _, hi_b) = camera_and_bounce(
         scene, cam, dev, seed=4)
@@ -811,10 +905,14 @@ def batched_input(dev):
     hit = hi_b > 0  # the camera ray hit: o_b is its hit point
     r = np.random.default_rng(8)
     xi = torch.as_tensor(r.random((3, n), dtype=np.float32), device=dev)
-    p_l = _sample_area_light(scene, xi[0], xi[1], xi[2])[0]
-    to_l = p_l - o_b
-    dist = to_l.norm(dim=-1)
-    d_s = to_l / torch.clamp(dist, min=1e-20)[:, None]
+    if envmap:
+        wi, dist, _, _, _ = sample_envmap(scene.env, scene.tex, o_b, *xi)
+        d_s = -wi
+    else:
+        p_l = _sample_area_light(scene, xi[0], xi[1], xi[2])[0]
+        to_l = p_l - o_b
+        dist = to_l.norm(dim=-1)
+        d_s = to_l / torch.clamp(dist, min=1e-20)[:, None]
     t_s = torch.where(hit, torch.clamp(dist - EPSILON_DISTANCE, min=0.0),
                       torch.zeros_like(dist))
     o = torch.cat([o_c[:half], o_b[half:], o_b]).contiguous()
@@ -825,11 +923,14 @@ def batched_input(dev):
                       for size, c in ((half, 0), (n - half, 1), (half, 2),
                                       (n - half, 3))])
     order = march_order(g, o, d, t_min, t_max, bias)
+    if not bool(torch.isfinite(t_max).all()):
+        raise AssertionError("batched input: a t_max is not finite")
     if not bool((msw.march_sweep_plain(
             o[n:], d[n:], t_min[n:], t_max[n:], g.march_min, g.march_max,
             g.march_tris, g.march_prim).valid).any()):
         raise AssertionError("batched input: no shadow segment is occluded")
-    return ("batched", g, (o[order].contiguous(), d[order].contiguous(),
+    label = "envmap batched" if envmap else "batched"
+    return (label, g, (o[order].contiguous(), d[order].contiguous(),
                            t_min[order], t_max[order], g.march_min,
                            g.march_max, g.march_tris, g.march_prim))
 
@@ -863,6 +964,7 @@ def phase_kernel_k2(dev):
         torch.full((TILE,), 1e-4, device=dev), hi_s)))
     sets.append(fallback_input(dev))
     sets.append(batched_input(dev))
+    sets.append(batched_input(dev, envmap=True))
 
     lib = build.library()
     max_err = 0.0
@@ -903,6 +1005,14 @@ def phase_kernel_k2(dev):
         if label == "bounce":
             bounce = (args, bound_ms, bound_by, lm, ls)
             bounce_sup = supers
+        if label == "envmap batched":
+            envmap_batched = {
+                "shape": f"{len(args[0])} lanes (65536 continuations + "
+                         f"65536 envmap shadow segments) x {lm} chunks of "
+                         f"{ls}",
+                "ms": times[(label, "default")], "bound_ms": bound_ms,
+                "bound_by": bound_by}
+            envmap_args, envmap_sup = args, supers
         if label == "batched":
             batched = {"shape": f"{len(args[0])} lanes (65536 continuations "
                                 f"+ 65536 shadow segments, classes 0-3) x "
@@ -940,9 +1050,13 @@ def phase_kernel_k2(dev):
         "ms_by_input_and_setting": {f"{k[0]}/{k[1]}": v
                                     for k, v in times.items()},
         "batched": batched,
+        "envmap_batched": envmap_batched,
     }
     time_on_device(rec, "device_ms",
                    lambda: msw.march_sweep(*args, supers=bounce_sup),
+                   "march_kernel")
+    time_on_device(envmap_batched, "device_ms",
+                   lambda: msw.march_sweep(*envmap_args, supers=envmap_sup),
                    "march_kernel")
     time_on_device(batched, "device_ms",
                    lambda: msw.march_sweep(*batched_args, supers=batched_sup),
@@ -1144,11 +1258,11 @@ def body_taken(scene, counts, label):
 
 
 def phase_render_route(dev, smi, label, make_config, route, kernels,
-                       against_cpu=True, body=None):
+                       against_cpu=True, body=None, warmup_spp=SPP):
     """Renderer.render of a mesh scene above DENSE_MAX_PRIMS at full width
-    after a warm-up frame; the route's kernels must have launched, and the
-    regen body must be `body` where given.  Returns the kernel counts, the
-    frame's wall and the renderer."""
+    after a warm-up frame (of `warmup_spp` samples); the route's kernels
+    must have launched, and the regen body must be `body` where given.
+    Returns the kernel counts, the frame's wall and the renderer."""
     from mcpt_tpu_torch.ops.traversal import resolved_strategy
     from mcpt_tpu_torch.render.renderer import Renderer
 
@@ -1157,7 +1271,7 @@ def phase_render_route(dev, smi, label, make_config, route, kernels,
     if resolved_strategy(g) != route:
         raise AssertionError(f"{label}: route {resolved_strategy(g)}, "
                              f"expected {route}")
-    r.render(spp=SPP, tile=TILE, spp_chunk=SPP_CHUNK)  # warm-up frame
+    r.render(spp=warmup_spp, tile=TILE, spp_chunk=SPP_CHUNK)  # warm-up frame
     img, wall, counts = _render_timed(r, SPP, frame_base=1)
     _check_image(img, label)
     missing = [k for k in kernels if counts[k] <= 0]
@@ -1176,6 +1290,98 @@ def phase_render_route(dev, smi, label, make_config, route, kernels,
     if against_cpu:
         card_vs_cpu(make_config, dev, label)
     return counts, wall, r
+
+
+def phase_render_envmap(dev, smi):
+    """render-envmap: the alias build of the 2048x1024 sky timed on the
+    host, then the envmap scene through the batched body and K2."""
+    from mcpt_tpu_torch.models.emitter import build_envmap
+    from mcpt_tpu_torch.scene.builtin import envmap_matpreview, sky_envmap
+
+    sky = sky_envmap()
+    t0 = time.perf_counter()
+    env = build_envmap(sky, np.eye(4, dtype=np.float32), 0, "cpu")
+    say(f"render-envmap: alias table of the {env.width}x{env.height} envmap "
+        f"({env.width * env.height} texels) built in "
+        f"{time.perf_counter() - t0:.3f} s on the host")
+    counts, wall, r = phase_render_route(
+        dev, smi, "render-envmap", envmap_matpreview, "march", ("K2",),
+        body="batched")
+    if r.scene.env_kind != "envmap" or r.scene.n_emissive:
+        raise AssertionError("render-envmap: not lit by the envmap alone")
+    return counts, wall, r
+
+
+def phase_render_lights(dev, smi):
+    """render-lights: the lights scene through K1 and the unbatched body,
+    whose shadow queries walk their alpha crossings by closest hits."""
+    from mcpt_tpu_torch.integrators.path import (SHADOW_ALPHA_K,
+                                                 _nee_query_count,
+                                                 _use_batched_trace)
+    from mcpt_tpu_torch.ops.traversal import DENSE_MAX_PRIMS
+    from mcpt_tpu_torch.render.renderer import Renderer
+    from mcpt_tpu_torch.scene.builtin import lights_showcase
+
+    r = Renderer(lights_showcase(), device=dev)
+    scene = r.scene
+    p = scene.geom.packed_tris.shape[0]
+    if (p > DENSE_MAX_PRIMS or _use_batched_trace(scene)
+            or not scene.has_opacity or not scene.em_quad_cells):
+        raise AssertionError("render-lights: not the dense route, the "
+                             "unbatched body and the alpha walk")
+    # a 1-spp warm-up frame: the same code and shapes as the timed frame
+    # at 1/16 of its ~80 s
+    r.render(spp=1, tile=TILE, spp_chunk=SPP_CHUNK)
+    img, wall, counts = _render_timed(r, SPP, frame_base=1)
+    _check_image(img, "render-lights")
+    per_iter = 1 + _nee_query_count(scene) * SHADOW_ALPHA_K
+    if (counts["K1"] <= 0 or counts["K1_any"] or counts["K1"] % per_iter
+            or counts["K2"] or counts["K3"] or counts["K4"]):
+        raise AssertionError(f"render-lights: not {per_iter} closest-hit K1 "
+                             f"launches a wavefront iteration ({counts})")
+    rays = RES * RES * SPP * (1 + 2 * AVG_BOUNCES)
+    say(f"render-lights: {p} padded triangles + {len(scene.quad_kinds)} "
+        f"quadric rows, {_nee_query_count(scene)} shadow queries a vertex, "
+        f"unbatched body; {RES}x{RES} {SPP}spp d{DEPTH} wall {wall:.3f} s, "
+        f"{rays / wall / 1e6:.2f} Mrays/s on {smi}; K1 launches "
+        f"{counts['K1']} closest-hit ({counts['K1'] // per_iter} iterations "
+        f"x {per_iter}), 0 any-hit; mean "
+        f"{np.round(img.mean(axis=(0, 1)), 4).tolist()}")
+    card_vs_cpu(lights_showcase, dev, "render-lights")
+    return counts, wall, r
+
+
+def tile_chunk_profile(r, label, smi):
+    """One tile-chunk of a renderer's frame (the first 64k pixels, one spp
+    chunk of 8: 1/8 of a 512x512 16-spp frame) timed, then again under
+    torch.profiler: the device's busy time, its idle share of the
+    unprofiled wall, and the device activities (kernels, copies, sets)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcpt_tpu_torch.integrators.path import shade_regen
+
+    idx = torch.arange(TILE, device=r.device)
+
+    def run():
+        shade_regen(r.scene, r.integrator, r.camera, idx, SPP_CHUNK,
+                    frame_base=2, spp_total=SPP)
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    say(f"device-times: {label} tile-chunk ({TILE} px x {SPP_CHUNK} spp) "
+        f"wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
+        f"{1 - busy / wall:.3f}, {len(events)} device activities, on {smi}")
+    return {"tile_chunk_wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall, "device_activities": len(events)}
 
 
 #: frames a side of march-unbatched, alternating with the batched body
@@ -1234,8 +1440,9 @@ def phase_device_times(k1, k2, k3, k4):
     for record, field, fn, kernel, reps in _device_jobs:
         record[field] = kernel_ms(fn, kernel, reps=reps)
     for rec, label in ((k1, "K1(a)"), (k2, "K2 bounce"),
-                       (k2["batched"], "K2 batched"), (k3, "K3 bounce"),
-                       (k4, "K4 bounce")):
+                       (k2["batched"], "K2 batched"),
+                       (k2["envmap_batched"], "K2 envmap batched"),
+                       (k3, "K3 bounce"), (k4, "K4 bounce")):
         say(f"device-times: {label} {rec['device_ms']:.4f} ms of device time "
             f"a launch (between events {rec['ms']:.4f} ms)")
     say(f"device-times: K3 bounce against its bounds: {k3['bound_ms']:.4f} "
@@ -1258,58 +1465,68 @@ def main():
     signal.alarm(WATCHDOG_S)
     t_start = time.perf_counter()
 
-    _phase[0] = "env"
+    begin("env")
     name, smi = phase_env()
     import torch
 
     dev = torch.device("cuda", 0)
-    _phase[0] = "build"
+    begin("build")
     phase_build()
-    _phase[0] = "kernel-K1"
+    begin("kernel-K1")
     k1 = phase_kernel(dev)
-    _phase[0] = "render-cornell"
+    begin("render-cornell")
     n_cornell = phase_render_cornell(dev, smi)
-    _phase[0] = "render-mesh"
+    begin("render-mesh")
     n_mesh = phase_render_mesh(dev, smi)
     # K1's time is taken at render-mesh's triangle count (16384), and
     # cornell_ms at render-cornell's: each beside its own path's launches
     k1["launches"] = n_mesh
     k1["cornell_launches"] = n_cornell
-    _phase[0] = "kernel-K2"
+    begin("kernel-K2")
     k2 = phase_kernel_k2(dev)
-    _phase[0] = "kernel-K3K4"
+    begin("kernel-K3K4")
     k3, k4 = phase_kernel_k3k4(dev)
 
     from mcpt_tpu_torch.scene.builtin import (
         cornell_mesh_march, cornell_mesh_materials, cornell_mesh_pairs)
 
-    _phase[0] = "render-march"
+    begin("render-march")
     c_m, march_wall, r_m = phase_render_route(
         dev, smi, "render-march", cornell_mesh_march, "march", ("K2",),
         body="batched")
-    _phase[0] = "march-unbatched"
+    begin("march-unbatched")
     phase_march_unbatched(smi, r_m, march_wall)
     del r_m
-    _phase[0] = "render-materials"
+    begin("render-materials")
     c_mat, _, _ = phase_render_route(
         dev, smi, "render-materials", cornell_mesh_materials, "march",
-        ("K2",), body="batched")
-    _phase[0] = "render-pairs"
+        ("K2",), body="batched", warmup_spp=1)
+    begin("render-pairs")
     c_p, pairs_wall, _ = phase_render_route(
         dev, smi, "render-pairs", cornell_mesh_pairs, "pairs", ("K3", "K4"),
         body="unbatched")
-    _phase[0] = "pairs-by-march"
+    begin("pairs-by-march")
     phase_pairs_by_march(dev, smi, pairs_wall)
-    _phase[0] = "device-times"
+    begin("render-envmap")
+    c_env, _, r_env = phase_render_envmap(dev, smi)
+    begin("render-lights")
+    c_lights, _, r_lights = phase_render_lights(dev, smi)
+    k1["lights_launches"] = c_lights["K1"]
+    begin("device-times")
     phase_device_times(k1, k2, k3, k4)
-    k2["launches"] = c_m["K2"] + c_mat["K2"] + c_p["K2"]
+    for r, label in ((r_env, "render-envmap"), (r_lights, "render-lights")):
+        tile_chunk_profile(r, label, smi)
+    del r_env, r_lights
+    k2["launches"] = c_m["K2"] + c_mat["K2"] + c_p["K2"] + c_env["K2"]
     k2["launches_by_path"] = {"render-march": c_m["K2"],
                               "render-materials": c_mat["K2"],
-                              "render-pairs": c_p["K2"]}
+                              "render-pairs": c_p["K2"],
+                              "render-envmap": c_env["K2"]}
     k3["launches"] = c_p["K3"]
     k4["launches"] = c_p["K4"]
 
     signal.alarm(0)
+    begin("end")
     say(f"total: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [k1, k2, k3, k4]}))
     say(json.dumps({"ok": True, "device": {

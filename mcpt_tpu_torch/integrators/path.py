@@ -1,15 +1,16 @@
 """Wavefront path integrator with NEE + MIS + RR, regeneration engine
 (counterpart of mcpt_tpu/integrators/path.py; csrt
-src/renderer/integrators/path.cpp), for triangle scenes lit by area
-lights.
+src/renderer/integrators/path.cpp).
 
 Every lane owns all `spp` samples of one pixel: when its path dies it
 re-seeds and traces its next camera sample in the same iteration.  Each
-iteration mirrors the reference's body — trace, emitter hit with MIS,
-Russian roulette with immediate compensation, NEE toward one
-CDF-sampled emissive triangle with shadow-ray RR, BSDF sampling — and
-draws the same number of uniforms in every lane, so the sample streams,
-and with them the image, match the reference's.
+iteration mirrors the reference's body — trace, stochastic opacity,
+escape into the envmap or constant sky with MIS, emitter hit with MIS,
+Russian roulette with immediate compensation, NEE toward every delta
+light, one CDF-sampled area light and the escape emitter (shadow-ray RR,
+and the stochastic-alpha walk where the scene has opacity maps), BSDF
+sampling — and draws the same number of uniforms in every lane, so the
+sample streams, and with them the image, match the reference's.
 
 Two bodies, as in the reference: the unbatched one traces the
 continuation and then each NEE shadow ray on its own; the batched one
@@ -26,23 +27,34 @@ from typing import NamedTuple
 import torch
 
 from mcpt_tpu_torch.models import bsdf as bsdfs
+from mcpt_tpu_torch.models import emitter as emitters
 from mcpt_tpu_torch.models import texture as textures
 from mcpt_tpu_torch.ops import rng
 from mcpt_tpu_torch.ops.math import (
     EPSILON,
     EPSILON_DISTANCE,
     EPSILON_FLOAT,
+    INV_FOUR_PI,
     MAX_FLOAT,
+    cross,
     dot,
     mis_weight,
     normalize,
     take_rows,
 )
+from mcpt_tpu_torch.ops.quadric import quadric_attrs, sample_quadric_row
 from mcpt_tpu_torch.ops.scene_intersect import scene_any, scene_closest
 from mcpt_tpu_torch.ops.traversal import DENSE_MAX_PRIMS, resolved_strategy
 from mcpt_tpu_torch.ops.warps import sample_triangle_uniform, searchsorted_cdf
 from mcpt_tpu_torch.render.camera import generate_rays
 from mcpt_tpu_torch.scene.compile import SceneData
+from mcpt_tpu_torch.scene.ir import EmitterType
+
+#: masked or null crossings one shadow ray resolves (path.py:236); past
+#: them it passes unoccluded, the reference's bounded-depth deviation.
+#: Read once, as the reference reads it; tests set the attribute
+SHADOW_ALPHA_K = max(1, int(os.environ.get("MCPT_SHADOW_ALPHA_K", "4")))
+
 
 def nee_rr_tau() -> float:
     """Shadow-ray Russian-roulette threshold (the reference's _nee_rr_tau,
@@ -71,8 +83,17 @@ def _where3(m, a, b):
     return torch.where(m[..., None], a, b)
 
 
+def _stex(scene: SceneData):
+    """The texture view of surface shading: the kinds the BSDF tables can
+    reach, so that an envmap's or a sun's bitmap does not put the bitmap
+    branch into every BSDF parameter read (path.py:68)."""
+    return scene.tex._replace(kinds=scene.surface_kinds)
+
+
 def interpolate_hit(scene: SceneData, ghit, o, d) -> HitAttrs:
-    """Barycentric attribute interpolation (csrt triangle.cpp:116-147)."""
+    """Barycentric attribute interpolation (csrt triangle.cpp:116-147);
+    quadric hits take their exact frames, bump maps perturb the frame,
+    and back faces flip it last."""
     g = scene.geom
     p = ghit.prim.long()
     uf = (1.0 - ghit.v - ghit.w)[..., None]
@@ -89,7 +110,35 @@ def interpolate_hit(scene: SceneData, ghit, o, d) -> HitAttrs:
     inst = g.inst_id[p]
     # missed lanes (t = MAX_FLOAT) keep a finite position
     position = o + torch.clamp(ghit.t, max=1e8)[..., None] * d
+
+    # quadric lanes: the exact frame and uv (csrt sphere.cpp:47-85,
+    # disk.cpp, cylinder.cpp)
+    if scene.quad_kinds:
+        qn, qt, qb, quv, qinst = quadric_attrs(
+            scene.quad, scene.quad_kinds, ghit.quad, position)
+        is_q = ghit.quad >= 0
+        normal = _where3(is_q, qn, normal)
+        tangent = _where3(is_q, qt, tangent)
+        bitangent = _where3(is_q, qb, bitangent)
+        uv = _where3(is_q, quv, uv)
+        inst = torch.where(is_q, qinst, inst)
     bsdf_id = take_rows(scene.map_inst_bsdf, torch.clamp(inst, min=0))
+
+    # bump maps perturb the frame before the inside flip (csrt
+    # triangle.cpp:129-134, bsdf.cpp:238-253)
+    if scene.has_bump:
+        bump_tid = take_rows(scene.bsdf.bump_tid, torch.clamp(bsdf_id, min=0))
+        has_bump = (bump_tid >= 0) & (bsdf_id >= 0)
+        grad = textures.eval_gradient(
+            bsdfs._ktex(scene.tex, scene.bsdf, "bump"),
+            torch.clamp(bump_tid, min=0), uv)
+        n_b = normalize(-grad[..., 0:1] * tangent - grad[..., 1:2] * bitangent
+                        + normal)
+        b_b = normalize(cross(n_b, tangent))
+        t_b = normalize(cross(b_b, n_b))
+        normal = _where3(has_bump, n_b, normal)
+        bitangent = _where3(has_bump, b_b, bitangent)
+        tangent = _where3(has_bump, t_b, tangent)
 
     # back-face hits flip the stored normal/bitangent (triangle.cpp:136-141)
     normal = _where3(ghit.inside, -normal, normal)
@@ -108,9 +157,29 @@ def interpolate_hit(scene: SceneData, ghit, o, d) -> HitAttrs:
     )
 
 
+def apply_opacity(scene: SceneData, hit: HitAttrs, seed):
+    """Stochastic alpha (path.py:156): a hit on an opacity-masked surface
+    becomes a null pass-through vertex with probability 1 - alpha (csrt
+    tests IsTransparent in traversal, triangle.cpp:117, bsdf.cpp:272-276;
+    the wavefront tests it at the shading vertex).  One uniform draw, in
+    scenes with opacity maps only."""
+    if not scene.has_opacity:
+        return hit, seed
+    seed, u = rng.random_float(seed)
+    tid = take_rows(scene.bsdf.opacity_tid, torch.clamp(hit.bsdf_id, min=0))
+    has = (tid >= 0) & (hit.bsdf_id >= 0) & hit.valid
+    alpha = textures.eval_opacity(
+        bsdfs._ktex(scene.tex, scene.bsdf, "opacity"),
+        torch.clamp(tid, min=0), hit.uv)
+    transparent = has & (u >= alpha)
+    return hit._replace(bsdf_id=torch.where(
+        transparent, torch.full_like(hit.bsdf_id, -1), hit.bsdf_id)), seed
+
+
 def _sample_area_light(scene: SceneData, xi_sel, xi_a, xi_b):
-    """Pick an emissive triangle from the global CDF and a point on it
-    (csrt path.cpp:186-196 + blas.cpp:79-98)."""
+    """Pick an emissive cell from the global CDF and a point on it (csrt
+    path.cpp:186-196 + blas.cpp:79-98): a triangle's, or an emissive
+    quadric's uniform surface sample where the cell is a quadric's."""
     em = scene.em
     cell = searchsorted_cdf(em.cdf, xi_sel)
     w, u, v = sample_triangle_uniform(xi_a, xi_b)
@@ -119,13 +188,22 @@ def _sample_area_light(scene: SceneData, xi_sel, xi_a, xi_b):
     nrm = normalize(wf * em.n0[cell] + uf * em.n1[cell] + vf * em.n2[cell])
     uv = wf * em.uv0[cell] + uf * em.uv1[cell] + vf * em.uv2[cell]
     radiance_tid = scene.bsdf.radiance_tid[em.bsdf_id.long()][cell]
-    radiance = textures.eval_color(scene.tex, torch.clamp(radiance_tid, min=0), uv)
+    for cell_idx, quad_row, kind in scene.em_quad_cells:
+        qpos, qnrm, quv = sample_quadric_row(scene.quad, quad_row, kind,
+                                             xi_a, xi_b)
+        m = cell == cell_idx
+        pos = _where3(m, qpos, pos)
+        nrm = _where3(m, qnrm, nrm)
+        uv = _where3(m, quv, uv)
+    radiance = textures.eval_color(
+        bsdfs._ktex(scene.tex, scene.bsdf, "radiance"),
+        torch.clamp(radiance_tid, min=0), uv)
     return pos, nrm, radiance, em.pdf_area[cell]
 
 
 def _bsdf_eval(scene, hit, wi, wo):
     return bsdfs.bsdf_evaluate(
-        scene.bsdf, scene.tex, scene.present_types, hit.bsdf_id, wi, wo,
+        scene.bsdf, _stex(scene), scene.present_types, hit.bsdf_id, wi, wo,
         hit.normal, hit.tangent, hit.bitangent, hit.inside, hit.uv,
         kc=(scene.brdf_avg, scene.albedo_avg),
     )
@@ -133,7 +211,7 @@ def _bsdf_eval(scene, hit, wi, wo):
 
 def _bsdf_sample(scene, hit, wo, xi):
     return bsdfs.bsdf_sample(
-        scene.bsdf, scene.tex, scene.present_types, hit.bsdf_id, wo,
+        scene.bsdf, _stex(scene), scene.present_types, hit.bsdf_id, wo,
         hit.normal, hit.tangent, hit.bitangent, hit.inside, hit.uv, xi,
         kc=(scene.brdf_avg, scene.albedo_avg),
     )
@@ -141,20 +219,27 @@ def _bsdf_sample(scene, hit, wo, xi):
 
 def _nee_query_count(scene: SceneData) -> int:
     """Shadow queries one _direct_lighting call makes (path.py:278-283):
-    one for the area lights, if any (analytic emitters and the envmap
-    are ROADMAP item 14)."""
-    return 1 if scene.n_emissive else 0
+    the area lights' one, one a delta light, the escape emitter's one."""
+    q = (1 if scene.n_emissive else 0) + len(scene.emitter_rows)
+    return q + (scene.env_kind != "none")
 
 
 def nee_draw_count(scene: SceneData) -> int:
-    """Uniform draws one _direct_lighting call consumes, as the
-    reference counts them for this scene class (path.py:302-318) so the
-    RNG streams stay aligned: three for the area-light sample and, when
-    shadow-ray RR is on (tau > 0), its coin; or the reference's minimum
-    of one draw."""
-    if not scene.n_emissive:
-        return 1
-    return 4 if nee_rr_tau() > 0.0 else 3
+    """Uniform draws one _direct_lighting call consumes (path.py:302-318),
+    so that the RNG streams stay aligned: three for the area light, two a
+    delta light, three for an envmap (row, column, alias coin) or two for
+    a constant sky; then SHADOW_ALPHA_K a query for the alpha walk where
+    the scene has opacity maps, and one RR coin a query where shadow-ray
+    RR is on (tau > 0).  At least one."""
+    q_n = _nee_query_count(scene)
+    k = 3 if scene.n_emissive else 0
+    k += 2 * len(scene.emitter_rows)
+    k += {"envmap": 3, "constant": 2}.get(scene.env_kind, 0)
+    if scene.has_opacity:
+        k += SHADOW_ALPHA_K * q_n
+    if nee_rr_tau() > 0.0:
+        k += q_n
+    return max(k, 1)
 
 
 def _nee_rr(pend, live, xi, tau, beta=None):
@@ -173,11 +258,48 @@ def _nee_rr(pend, live, xi, tau, beta=None):
     return pend, live & keep
 
 
-def shadow_occluded(scene: SceneData, o, d, geo_ok, dist):
-    """Occlusion of the segment o -> o + dist*d by an opaque triangle
-    (scenes without opacity maps: the plain any-hit)."""
+def shadow_occluded(scene: SceneData, o, d, geo_ok, dist, xi=None):
+    """Occlusion of the segment o -> o + dist*d (path.py:343-419).
+
+    Without opacity maps: the plain any-hit.  With them, the segment's
+    successive closest hits, up to SHADOW_ALPHA_K of them: an opaque hit
+    occludes, a null-boundary hit passes, a masked triangle occludes with
+    probability alpha (the draw convention of apply_opacity; quadrics
+    have no alpha); crossings past SHADOW_ALPHA_K pass.  xi:
+    [SHADOW_ALPHA_K, N] uniforms, read only with opacity maps."""
     t_hi = torch.where(geo_ok, dist - EPSILON_DISTANCE, torch.zeros_like(dist))
-    return scene_any(scene, o, d, t_min=EPSILON_DISTANCE, t_max=t_hi)
+    if not scene.has_opacity:
+        return scene_any(scene, o, d, t_min=EPSILON_DISTANCE, t_max=t_hi)
+
+    g = scene.geom
+    occ = torch.zeros_like(geo_ok)
+    active = geo_ok
+    t_lo = torch.full_like(dist, EPSILON_DISTANCE)
+    opacity_tex = bsdfs._ktex(scene.tex, scene.bsdf, "opacity")
+    for k in range(SHADOW_ALPHA_K):
+        h = scene_closest(scene, o, d, t_min=t_lo,
+                          t_max=torch.where(active, t_hi,
+                                            torch.zeros_like(t_hi)))
+        valid = h.valid & active
+        p = h.prim.long()
+        inst = g.inst_id[p]
+        is_q = h.quad >= 0
+        if scene.quad_kinds:
+            qinst = take_rows(scene.quad.inst_id, torch.clamp(h.quad, min=0))
+            inst = torch.where(is_q, qinst, inst)
+        bsdf_id = take_rows(scene.map_inst_bsdf, torch.clamp(inst, min=0))
+        is_null = bsdf_id < 0
+        tid = take_rows(scene.bsdf.opacity_tid, torch.clamp(bsdf_id, min=0))
+        has_mask = (tid >= 0) & ~is_null & ~is_q
+        u_b = (1.0 - h.v - h.w)[..., None]
+        uv = (u_b * g.uv0[p] + h.v[..., None] * g.uv1[p]
+              + h.w[..., None] * g.uv2[p])
+        alpha = textures.eval_opacity(opacity_tex, torch.clamp(tid, min=0), uv)
+        blocked = valid & ~is_null & (~has_mask | (xi[k] < alpha))
+        occ = occ | blocked
+        active = valid & ~blocked  # crossed a null shell or passed a mask
+        t_lo = torch.where(active, h.t + EPSILON_DISTANCE, t_lo)
+    return occ
 
 
 def _nee_area_query(scene: SceneData, hit: HitAttrs, wo, alive, xi0, xi1, xi2):
@@ -203,20 +325,121 @@ def _nee_area_query(scene: SceneData, hit: HitAttrs, wo, alive, xi0, xi1, xi2):
                                      torch.zeros_like(contrib))
 
 
+def _nee_queries(scene: SceneData, hit: HitAttrs, wo, alive, xi):
+    """Every emitter's NEE query without its occlusion test
+    (path.py:462-528): a list of (wi, dist, geo_ok, contrib-if-unoccluded)
+    in _nee_query_count's order — the area light, the delta lights by
+    row, the escape emitter — from the leading sample draws of xi."""
+    queries = []
+    cursor = 0
+    if scene.n_emissive:
+        queries.append(_nee_area_query(scene, hit, wo, alive,
+                                       xi[0], xi[1], xi[2]))
+        cursor = 3
+
+    for row, etype in scene.emitter_rows:
+        xi0, xi1 = xi[cursor], xi[cursor + 1]
+        cursor += 2
+        if etype == EmitterType.POINT:
+            wi, dist, rad, valid = emitters.sample_point(
+                scene.emitters, row, hit.position)
+        elif etype == EmitterType.SPOT:
+            wi, dist, rad, valid = emitters.sample_spot(
+                scene.emitters, scene.tex, row, hit.position)
+        elif etype == EmitterType.DIRECTIONAL:
+            wi, dist, rad, valid = emitters.sample_directional(
+                scene.emitters, row, hit.position)
+        else:  # SUN
+            wi, dist, rad, valid = emitters.sample_sun(
+                scene.emitters, row, hit.position, xi0, xi1)
+        geo_ok = valid & alive & (dot(-wi, hit.normal) >= EPSILON_FLOAT)
+        _, f, f_valid = _bsdf_eval(scene, hit, wi, wo)
+        # a delta light: no MIS, no pdf (path.cpp:170-173)
+        queries.append((wi, dist, geo_ok, _where3(geo_ok & f_valid, rad * f,
+                                                  torch.zeros_like(f))))
+
+    if scene.env_kind != "none":
+        if scene.env_kind == "envmap":
+            wi, dist, rad, pdf, valid = emitters.sample_envmap(
+                scene.env, scene.tex, hit.position,
+                xi[cursor], xi[cursor + 1], xi[cursor + 2])
+        else:  # constant
+            wi, dist, rad, pdf, valid = emitters.sample_constant(
+                scene.emitters, scene.env_row, hit.position,
+                xi[cursor], xi[cursor + 1])
+        geo_ok = valid & alive & (dot(-wi, hit.normal) >= EPSILON_FLOAT)
+        pdf_eval, f, f_valid = _bsdf_eval(scene, hit, wi, wo)
+        w_mis = mis_weight(pdf, pdf_eval)
+        contrib = (w_mis[..., None] * rad * f
+                   / torch.clamp(pdf, min=1e-12)[..., None])
+        queries.append((wi, dist, geo_ok, _where3(
+            geo_ok & f_valid, contrib, torch.zeros_like(contrib))))
+    return queries
+
+
 def _direct_lighting(scene: SceneData, hit: HitAttrs, wo, alive, xi, beta):
-    """NEE: one CDF-sampled area light against its shadow ray, with
-    shadow-ray RR where tau > 0 (csrt EvaluateDirectLightPath,
+    """NEE over every emitter, each query against its own shadow ray,
+    with shadow-ray RR where tau > 0 (csrt EvaluateDirectLightPath,
     path.cpp:138-236).  Shadow segments run surface -> light; occlusion
-    of the segment is symmetric.  xi: [nee_draw_count, N] uniforms."""
-    if not scene.n_emissive:
-        return torch.zeros_like(wo)
-    wi, dist, geo_ok, contrib = _nee_area_query(
-        scene, hit, wo, alive, xi[0], xi[1], xi[2])
+    of the segment is symmetric.  xi: [nee_draw_count, N] uniforms, laid
+    out as the sample draws, then the alpha walk's SHADOW_ALPHA_K a query
+    (opacity maps only), then one RR coin a query (tau > 0 only)."""
+    q_n = _nee_query_count(scene)
     tau = nee_rr_tau()
-    if tau > 0.0:  # at tau = 0 the coin is not drawn (nee_draw_count)
-        contrib, geo_ok = _nee_rr(contrib, geo_ok, xi[3], tau, beta)
-    occluded = shadow_occluded(scene, hit.position, -wi, geo_ok, dist)
-    return _where3(occluded | ~geo_ok, torch.zeros_like(contrib), contrib)
+    rr_base = nee_draw_count(scene) - (q_n if tau > 0.0 else 0)
+    s_base = rr_base - (SHADOW_ALPHA_K * q_n if scene.has_opacity else 0)
+    L = torch.zeros_like(wo)
+    for j, (wi, dist, geo_ok, contrib) in enumerate(
+            _nee_queries(scene, hit, wo, alive, xi)):
+        if tau > 0.0:
+            contrib, geo_ok = _nee_rr(contrib, geo_ok, xi[rr_base + j], tau,
+                                      beta)
+        xi_shadow = (xi[s_base + j * SHADOW_ALPHA_K:
+                        s_base + (j + 1) * SHADOW_ALPHA_K]
+                     if scene.has_opacity else None)
+        occluded = shadow_occluded(scene, hit.position, -wi, geo_ok, dist,
+                                   xi_shadow)
+        L = L + _where3(occluded | ~geo_ok, torch.zeros_like(contrib), contrib)
+    return L
+
+
+def _escape_radiance(scene: SceneData, look_dir):
+    """An escaping ray's radiance from the envmap or the constant sky
+    (path.py:569-580)."""
+    if scene.env_kind == "envmap":
+        return emitters.eval_envmap(scene.env, scene.tex, look_dir)
+    if scene.env_kind == "constant":
+        return scene.emitters.radiance[scene.env_row].expand(look_dir.shape)
+    return torch.zeros_like(look_dir)
+
+
+def _escape_pdf(scene: SceneData, look_dir):
+    """The NEE pdf of an escaping direction, for MIS (path.py:583-590)."""
+    if scene.env_kind == "envmap":
+        return emitters.pdf_envmap(scene.env, scene.tex, look_dir)
+    return torch.full(look_dir.shape[:-1],
+                      INV_FOUR_PI if scene.env_kind == "constant" else 0.0,
+                      dtype=look_dir.dtype, device=look_dir.device)
+
+
+def _escape(scene, L_samp, d, beta, pdf_mis, alive, hit, primary):
+    """Add escaping rays' radiance to L_samp: the escape emitter's with
+    MIS against its NEE pdf (a camera ray's pdf_mis of 1e12 makes the
+    weight 1), then the sun bitmap on camera segments
+    (path.py:1178-1195)."""
+    esc = alive & ~hit.valid
+    if scene.env_kind != "none":
+        w_esc = mis_weight(pdf_mis, _escape_pdf(scene, d))
+        L_samp = L_samp + _where3(
+            esc, w_esc[..., None] * beta * _escape_radiance(scene, d),
+            torch.zeros_like(beta))
+    if scene.sun_row >= 0:
+        L_samp = L_samp + _where3(
+            esc & primary,
+            emitters.eval_sun_escape(scene.emitters, scene.tex, scene.sun_row,
+                                     d),
+            torch.zeros_like(beta))
+    return L_samp
 
 
 def _use_batched_trace(scene: SceneData) -> bool:
@@ -278,7 +501,7 @@ def _emitter_hit(scene, integ, hit, d, beta, pdf_mis, alive, primary):
     pdf_direct = pdf_area_hit * (t_safe * t_safe) / torch.clamp(
         cos_prime, min=1e-12)
     w_bsdf = mis_weight(pdf_mis, pdf_direct)
-    rad = bsdfs.get_radiance(scene.bsdf, scene.tex, hit.bsdf_id, hit.uv)
+    rad = bsdfs.get_radiance(scene.bsdf, _stex(scene), hit.bsdf_id, hit.uv)
     backface = hit.inside & ~bsdfs.is_twosided(scene.bsdf, hit.bsdf_id) & has_b
     take_em = (alive & hit.valid & emitter & ~backface
                & ((cos_prime >= EPSILON_FLOAT) | primary))
@@ -338,7 +561,8 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
     dev = pixel_idx.device
     n_nee = nee_draw_count(scene)
     # with no lights (or depth_max 1) only the primary vertex matters
-    no_lights = scene.n_emissive == 0
+    no_lights = (scene.n_emissive == 0 and not scene.emitter_rows
+                 and scene.env_kind == "none")
     depth_cut = 1 if (no_lights or integ.depth_max <= 1) else integ.depth_max
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -380,7 +604,10 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
             sort_bias=(~fresh).int(),
         )
         hit = interpolate_hit(scene, ghit, o, d)
+        hit, seed = apply_opacity(scene, hit, seed)
         vert = vert + 1
+        L_samp = _escape(scene, L_samp, d, beta, pdf_mis, alive, hit,
+                         vert == 1)
         L_add, ends = _emitter_hit(scene, integ, hit, d, beta, pdf_mis,
                                    alive, vert == 1)
         L_samp = L_samp + L_add
@@ -494,10 +721,14 @@ def _shade_regen_batched(scene: SceneData, integ, camera, reg: _Regen):
         L_prev = _where3(fold_pend, zeros3, L_prev)
         fold_pend = no
 
-        # --- 4. shade the continuation hit (as shade_regen)
+        # --- 4. shade the continuation hit (as shade_regen; the gate
+        # admits no opacity maps, so apply_opacity draws nothing here)
         hit = interpolate_hit(scene, ghit, o, d)
+        hit, seed = apply_opacity(scene, hit, seed)
         vert = vert + 1
         alive_entry = alive
+        L_samp = _escape(scene, L_samp, d, beta, pdf_mis, alive, hit,
+                         vert == 1)
         L_add, ends = _emitter_hit(scene, integ, hit, d, beta, pdf_mis,
                                    alive, vert == 1)
         L_samp = L_samp + L_add
@@ -506,10 +737,7 @@ def _shade_regen_batched(scene: SceneData, integ, camera, reg: _Regen):
 
         # --- 5. NEE: the whole contribution now, its occlusion next batch
         seed, xi_nee = rng.random_floats(seed, n_nee)
-        queries = []
-        if scene.n_emissive:
-            queries.append(_nee_area_query(scene, hit, -d, alive, xi_nee[0],
-                                           xi_nee[1], xi_nee[2]))
+        queries = _nee_queries(scene, hit, -d, alive, xi_nee)
         sh_o = hit.position
         new_d, new_dist, new_pend = [], [], []
         for j, (wi, dist, geo_ok, contrib) in enumerate(queries):

@@ -19,8 +19,10 @@ its lanes' mask.  Conventions are the reference's:
 * for diffuse-like lobes Evaluate's MIS pdf is cos(theta_i)/pi (the
   reference's documented deviation from csrt's dot(wo, n)).
 
-Textures are constant on this slice: opacity and bump maps raise
-(ROADMAP item 14).
+Every parameter read goes through `_ktex`, which narrows the texture
+kinds to those the parameter's column can reach (`col_kinds`), so a
+scene whose only bitmaps are albedos does no bitmap gathers for its
+roughness.
 """
 
 from __future__ import annotations
@@ -99,14 +101,51 @@ class BsdfTables(NamedTuple):
     use_beckmann: torch.Tensor       # [B] bool (Beckmann NDF, else GGX)
     clear_coat: torch.Tensor         # [B] f32 clear-coat weight (0 = none)
     coat_roughness_tid: torch.Tensor  # [B] int32 coat alpha texture
+    #: the texture kinds each parameter column can reach (static):
+    #: (("diffuse", (1, 3)), ...); empty = the caller's kinds
+    col_kinds: tuple = ()
 
 
-def build_bsdf_tables(infos: list[BsdfInfo], device) -> BsdfTables:
+def _ktex(tex, tables: BsdfTables, col: str):
+    """Texture view narrowed to column `col`'s kinds (the caller's kinds
+    where the table records none)."""
+    for name, kinds in tables.col_kinds:
+        if name == col:
+            return tex._replace(kinds=kinds)
+    return tex
+
+
+_COL_ATTR = {
+    "opacity": "id_opacity",
+    "bump": "id_bump_map",
+    "radiance": "id_radiance",
+    "diffuse": "id_diffuse_reflectance",
+    "roughness": "id_roughness",
+    "roughness_u": "id_roughness_u",
+    "roughness_v": "id_roughness_v",
+    "specular": "id_specular_reflectance",
+    "transmit": "id_specular_transmittance",
+    "coat_roughness": "id_coat_roughness",
+}
+
+
+def _column_kinds(infos, tex_infos) -> tuple:
+    """The texture kinds each parameter column can reach."""
+    if tex_infos is None:
+        return ()
+    out = []
+    for col, attr in _COL_ATTR.items():
+        tids = (getattr(i, attr) for i in infos)
+        kinds = {tex_infos[t]["type"] for t in tids if 0 <= t < len(tex_infos)}
+        out.append((col, tuple(sorted(kinds))))
+    return tuple(out)
+
+
+def build_bsdf_tables(infos: list[BsdfInfo], device,
+                      tex_infos=None) -> BsdfTables:
     """Host-side commit (csrt renderer.cpp:433-501 CommitBsdfs + Bsdf ctor
-    bsdf.cpp:115-188), the reference's build_bsdf_tables."""
-    for info in infos:
-        if info.id_opacity >= 0 or info.id_bump_map >= 0:
-            raise NotImplementedError("opacity and bump maps: ROADMAP item 14")
+    bsdf.cpp:115-188), the reference's build_bsdf_tables; `tex_infos`
+    (the TextureBuilder's infos) gives the per-column texture kinds."""
     b = max(len(infos), 1)
 
     def arr(fn, dtype):
@@ -168,6 +207,7 @@ def build_bsdf_tables(infos: list[BsdfInfo], device) -> BsdfTables:
         use_beckmann=dev(arr(lambda i: i.ndf == "beckmann", np.bool_)),
         clear_coat=dev(arr(lambda i: i.clear_coat, np.float32)),
         coat_roughness_tid=ids("id_coat_roughness"),
+        col_kinds=_column_kinds(infos, tex_infos),
     )
 
 
@@ -207,7 +247,8 @@ def _safe(x, eps=1e-12):
 def _alpha(tables, tex, col: str, bid, uv, scale=None):
     """Roughness `col` of each lane's row, times `scale`, at least
     _MIN_ALPHA."""
-    a = _scalar_tex(tex, take_rows(getattr(tables, col), bid), uv)
+    a = _scalar_tex(_ktex(tex, tables, col.removesuffix("_tid")),
+                    take_rows(getattr(tables, col), bid), uv)
     if scale is not None:
         a = a * scale
     return torch.clamp(a, min=_MIN_ALPHA)
@@ -354,8 +395,10 @@ def _oren_nayar(albedo, sigma, wi_local, wo_local, fast):
 
 
 def _eval_rough_diffuse_atten(tables, tex, bid, uv, n, t, b, wi, wo):
-    albedo = textures.eval_color(tex, take_rows(tables.diffuse_tid, bid), uv)
-    sigma = _scalar_tex(tex, take_rows(tables.roughness_tid, bid), uv)
+    albedo = textures.eval_color(_ktex(tex, tables, "diffuse"),
+                                 take_rows(tables.diffuse_tid, bid), uv)
+    sigma = _scalar_tex(_ktex(tex, tables, "roughness"),
+                        take_rows(tables.roughness_tid, bid), uv)
     # the reference puts an optimization barrier (MCPT_ON_BARRIER) here, a
     # fusion break for the TPU compiler; eager torch has nothing to fuse,
     # so it has no counterpart
@@ -389,7 +432,8 @@ def _sample_conductor(tables, tex, kc, bid, uv, wo, n, t, b, xi):
     comp = _kc_conductor(kc, take_rows(tables.f_avg_rgb, bid), n_dot_i,
                          n_dot_o, au)
     atten = atten + _kc_iso(comp, au[..., None], av[..., None])
-    atten = atten * _tex_or_white(tex, take_rows(tables.specular_tid, bid), uv)
+    atten = atten * _tex_or_white(_ktex(tex, tables, "specular"),
+                                  take_rows(tables.specular_tid, bid), uv)
     valid = (pdf >= EPSILON) & (n_dot_i >= EPSILON_FLOAT)
     return wi, pdf, atten, valid
 
@@ -417,7 +461,8 @@ def _eval_conductor(tables, tex, kc, bid, uv, wi, wo, n, t, b):
     comp = _kc_conductor(kc, take_rows(tables.f_avg_rgb, bid), n_dot_i,
                          n_dot_o, au)
     atten = atten + _kc_iso(comp, au[..., None], av[..., None])
-    atten = atten * _tex_or_white(tex, take_rows(tables.specular_tid, bid), uv)
+    atten = atten * _tex_or_white(_ktex(tex, tables, "specular"),
+                                  take_rows(tables.specular_tid, bid), uv)
     valid = (n_dot_o >= EPSILON_FLOAT) & (pdf >= EPSILON)
     return pdf, atten, valid
 
@@ -446,8 +491,10 @@ def _sample_dielectric(tables, tex, kc, bid, uv, wo, n, t, b, inside, xi):
     n_dot_o = wo_local[..., 2]
     f_avg = take_rows(tables.f_avg, bid)
     f_avg_inv = take_rows(tables.f_avg_inv, bid)
-    spec = _tex_or_white(tex, take_rows(tables.specular_tid, bid), uv)
-    tran = _tex_or_white(tex, take_rows(tables.transmit_tid, bid), uv)
+    spec = _tex_or_white(_ktex(tex, tables, "specular"),
+                         take_rows(tables.specular_tid, bid), uv)
+    tran = _tex_or_white(_ktex(tex, tables, "transmit"),
+                         take_rows(tables.transmit_tid, bid), uv)
 
     # reflection branch
     wi_r = -reflect(-wo, h)
@@ -536,8 +583,10 @@ def _eval_dielectric(tables, tex, kc, bid, uv, wi, wo, n, t, b, inside):
     atten_s = torch.where(is_reflect, atten_r, atten_t * sqr(eta))
     comp_s = _kc_iso(comp, au, av)
     comp_s = torch.where(is_reflect, comp_s, comp_s * sqr(eta))
-    spec = _tex_or_white(tex, take_rows(tables.specular_tid, bid), uv)
-    tran = _tex_or_white(tex, take_rows(tables.transmit_tid, bid), uv)
+    spec = _tex_or_white(_ktex(tex, tables, "specular"),
+                         take_rows(tables.specular_tid, bid), uv)
+    tran = _tex_or_white(_ktex(tex, tables, "transmit"),
+                         take_rows(tables.transmit_tid, bid), uv)
     atten = (atten_s + comp_s)[..., None] * _where3(is_reflect, spec, tran)
     return pdf, atten, pdf >= EPSILON
 
@@ -567,8 +616,10 @@ def _sample_thin_dielectric(tables, tex, bid, uv, wo, n, t, b, xi):
     pdf = torch.where(choose_reflect, pdf0 * f, pdf0 * (1.0 - f))
     base = (torch.where(choose_reflect, f, 1.0 - f) * d_pdf * g
             / (4.0 * _safe(n_dot_o)))
-    spec = _tex_or_white(tex, take_rows(tables.specular_tid, bid), uv)
-    tran = _tex_or_white(tex, take_rows(tables.transmit_tid, bid), uv)
+    spec = _tex_or_white(_ktex(tex, tables, "specular"),
+                         take_rows(tables.specular_tid, bid), uv)
+    tran = _tex_or_white(_ktex(tex, tables, "transmit"),
+                         take_rows(tables.transmit_tid, bid), uv)
     atten = base[..., None] * _where3(choose_reflect, spec, tran)
     wi = _where3(choose_reflect, wi_r, wo)
     valid = (pdf >= EPSILON) & (n_dot_i >= EPSILON_FLOAT)
@@ -601,16 +652,20 @@ def _eval_thin_dielectric(tables, tex, bid, uv, wi, wo, n, t, b):
     g = (_g1_ndf(au, av, wi_local, h_local, beck)
          * _g1_ndf(au, av, wo_local, h_local, beck))
     base = lobe * d * g / (4.0 * _safe(n_dot_o))
-    spec = _tex_or_white(tex, take_rows(tables.specular_tid, bid), uv)
-    tran = _tex_or_white(tex, take_rows(tables.transmit_tid, bid), uv)
+    spec = _tex_or_white(_ktex(tex, tables, "specular"),
+                         take_rows(tables.specular_tid, bid), uv)
+    tran = _tex_or_white(_ktex(tex, tables, "transmit"),
+                         take_rows(tables.transmit_tid, bid), uv)
     atten = base[..., None] * _where3(is_reflect, spec, tran)
     valid = (pdf >= EPSILON) & (torch.abs(n_dot_o_raw) >= EPSILON_FLOAT)
     return pdf, atten, valid
 
 
 def _plastic_lobe_weights(tables, tex, bid, uv):
-    kd = textures.eval_color(tex, take_rows(tables.diffuse_tid, bid), uv)
-    ks = _tex_or_white(tex, take_rows(tables.specular_tid, bid), uv)
+    kd = textures.eval_color(_ktex(tex, tables, "diffuse"),
+                             take_rows(tables.diffuse_tid, bid), uv)
+    ks = _tex_or_white(_ktex(tex, tables, "specular"),
+                       take_rows(tables.specular_tid, bid), uv)
     w_spec = ks.sum(dim=-1) / _safe(kd.sum(dim=-1) + ks.sum(dim=-1))
     return kd, ks, w_spec
 
@@ -812,7 +867,8 @@ def bsdf_sample(tables: BsdfTables, tex, present_types, bid, wo, normal,
 
     if BsdfType.DIFFUSE in present_types:
         merge(BsdfType.DIFFUSE, _sample_diffuse(
-            tex, take_rows(tables.diffuse_tid, bid), uv, n, t, b, xi))
+            _ktex(tex, tables, "diffuse"), take_rows(tables.diffuse_tid, bid),
+            uv, n, t, b, xi))
     if BsdfType.ROUGH_DIFFUSE in present_types:
         wi_local, p_ = sample_hemisphere_cosine(xi[0], xi[1])
         w_ = -to_world(wi_local, t, b, n)
@@ -867,7 +923,8 @@ def bsdf_evaluate(tables: BsdfTables, tex, present_types, bid, wi, wo,
 
     if BsdfType.DIFFUSE in present_types:
         merge(BsdfType.DIFFUSE, _eval_diffuse(
-            tex, take_rows(tables.diffuse_tid, bid), uv, n, wi, wo))
+            _ktex(tex, tables, "diffuse"), take_rows(tables.diffuse_tid, bid),
+            uv, n, wi, wo))
     if BsdfType.ROUGH_DIFFUSE in present_types:
         cos_i = dot(-wi, n)
         cos_o = dot(wo, n)
@@ -900,7 +957,8 @@ def get_radiance(tables: BsdfTables, tex, bid, uv):
     bid = torch.clamp(bid, min=0)
     is_light = take_rows(tables.btype, bid) == BsdfType.AREA_LIGHT
     rad = textures.eval_color(
-        tex, torch.clamp(take_rows(tables.radiance_tid, bid), min=0), uv)
+        _ktex(tex, tables, "radiance"),
+        torch.clamp(take_rows(tables.radiance_tid, bid), min=0), uv)
     return _where3(is_light, rad, torch.zeros_like(rad))
 
 
@@ -922,6 +980,8 @@ def is_connectible(tables: BsdfTables, tex, bid, uv, min_alpha: float = 0.05):
     t = take_rows(tables.btype, bid)
     diffuseish = ((t == BsdfType.DIFFUSE) | (t == BsdfType.ROUGH_DIFFUSE)
                   | (t == BsdfType.PLASTIC))
-    au = _scalar_tex(tex, take_rows(tables.roughness_u_tid, bid), uv, 0.0)
-    av = _scalar_tex(tex, take_rows(tables.roughness_v_tid, bid), uv, 0.0)
+    au = _scalar_tex(_ktex(tex, tables, "roughness_u"),
+                     take_rows(tables.roughness_u_tid, bid), uv, 0.0)
+    av = _scalar_tex(_ktex(tex, tables, "roughness_v"),
+                     take_rows(tables.roughness_v_tid, bid), uv, 0.0)
     return diffuseish | (torch.maximum(au, av) >= min_alpha)

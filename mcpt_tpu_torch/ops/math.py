@@ -13,6 +13,8 @@ import torch
 PI = 3.141592653589793
 TWO_PI = 2.0 * PI
 INV_PI = 1.0 / PI
+INV_TWO_PI = 1.0 / TWO_PI
+INV_FOUR_PI = 1.0 / (4.0 * PI)
 MAX_FLOAT = 3.4028234663852886e38  # float32 max (the reference's 3.4028235e38)
 EPSILON = 0.01            # csrt kEpsilon — pdf/throughput cutoff
 EPSILON_FLOAT = 1.1920929e-7   # FLT_EPSILON
@@ -42,7 +44,26 @@ def dot(a, b, keepdim: bool = False):
 
 
 def cross(a, b):
-    return torch.linalg.cross(a, b, dim=-1)
+    """a x b over the trailing axis, each product rounded on its own (a
+    fused kernel may contract a1*b2 - a2*b1 into one multiply-add on the
+    card, and not on the CPU)."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def mat_vec(m, v):
+    """The 3x3 part of m [..., 4 or 3, 4 or 3] applied to vectors
+    v [..., 3], as x, y and z terms added in that order with each product
+    rounded on its own: the same bits on the card and the CPU, which a
+    matmul does not promise.  k stacked matrices [k, r, r] against
+    v [N, 3] or [k, N, 3] give [k, N, 3]."""
+    c = m[..., :3, :3]
+    if c.dim() == 3:
+        c = c[:, None]
+    return (v[..., 0:1] * c[..., 0] + v[..., 1:2] * c[..., 1]
+            + v[..., 2:3] * c[..., 2])
 
 
 def length(v, keepdim: bool = False):
@@ -55,6 +76,10 @@ def normalize(v):
 
 def sqr(x):
     return x * x
+
+
+def lerp(a, b, t):
+    return (1.0 - t) * a + t * b
 
 
 def reflect(wi, n):
@@ -115,3 +140,44 @@ def to_local(v, t, b, n):
 def to_world(v, t, b, n):
     """Inverse of :func:`to_local` (bsdf.cpp:109-112)."""
     return normalize(v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n)
+
+
+def cartesian_to_spherical(v):
+    """(theta, phi) in the reference's (right, up=y, front) convention:
+    theta from +y, phi = atan2(z, x) in [0, 2pi) (csrt
+    src/utils/math.cpp:100-118)."""
+    v = normalize(v)
+    theta = torch.arccos(torch.clamp(v[..., 1], -1.0, 1.0))
+    phi = torch.atan2(v[..., 2], v[..., 0])
+    phi = torch.where(phi < 0.0, phi + TWO_PI, phi)
+    return theta, phi
+
+
+def spherical_to_cartesian(theta, phi, r=1.0):
+    """The exact inverse of :func:`cartesian_to_spherical` (the reference's
+    consistent form, not csrt's x/z-swapped SphericalToCartesian)."""
+    sin_t = torch.sin(theta)
+    return torch.stack([r * torch.cos(phi) * sin_t, r * torch.cos(theta),
+                        r * torch.sin(phi) * sin_t], dim=-1)
+
+
+def local_to_world(local, up):
+    """Rotate a z-up local vector into the frame whose +z is `up` (csrt
+    src/utils/math.cpp:129-144)."""
+    t, b = build_onb(up)
+    # build_onb's (t, b) are local_to_world's (b, c)
+    return normalize(local[..., 0:1] * t + local[..., 1:2] * b
+                     + local[..., 2:3] * up)
+
+
+def transform_point(m, p):
+    """A 4x4 row-major transform [4, 4] applied to points [..., 3]."""
+    ph = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
+    out = torch.einsum("ij,...j->...i", m, ph)
+    return out[..., :3] / out[..., 3:4]
+
+
+def transform_vector(m, v):
+    """The linear part of a 4x4 transform applied to directions,
+    normalized (csrt mat4 TransformVector)."""
+    return normalize(mat_vec(m, v))

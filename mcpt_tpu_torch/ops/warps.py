@@ -9,6 +9,22 @@ import torch
 from mcpt_tpu_torch.ops.math import INV_PI, TWO_PI, sqr
 
 
+def sample_cone_uniform(cos_cutoff, xi0, xi1):
+    """Uniform direction in a cone around +z (math.cpp:15-22)."""
+    cos_theta = 1.0 - (1.0 - cos_cutoff) * xi0
+    phi = TWO_PI * xi1
+    sin_theta = torch.sqrt(torch.clamp(1.0 - sqr(cos_theta), min=0.0))
+    return torch.stack(
+        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta],
+        dim=-1,
+    )
+
+
+def sample_sphere_uniform(xi0, xi1):
+    """Uniform direction on the sphere (math.cpp:24-29); pdf = 1/4pi."""
+    return sample_cone_uniform(-1.0, xi0, xi1)
+
+
 def sample_hemisphere_cosine(xi0, xi1):
     """Cosine-weighted hemisphere sample around +z (math.cpp:31-38).
     Returns (direction, pdf) with pdf = cos_theta / pi."""

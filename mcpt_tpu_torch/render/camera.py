@@ -69,6 +69,9 @@ def generate_rays(camera: Camera, pixel_idx, u, v):
         + x[:, None] * camera.view_dx[None, :]
         + y[:, None] * camera.view_dy[None, :]
     )
-    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    # the length term by term in one order: the same bits on the card
+    # and the CPU, which a library norm does not promise
+    d = d / torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                       + d[:, 2] * d[:, 2])[:, None]
     o = camera.eye.expand_as(d)
     return o, d

@@ -16,6 +16,22 @@ scenes go past DENSE_MAX_PRIMS, one down each large-scene route
 `cornell_mesh_materials` is `cornell_mesh_march` dressed in every BSDF
 family, a material-preview scene: all-opaque, one area light, so it
 takes the batched regen body.
+
+Two scenes without the box drive the emitters, textures and quadrics:
+
+* `envmap_matpreview` — a matpreview-class scene lit only by an
+  importance-sampled HDR envmap: the 51,200-triangle sphere in rough
+  gold, a bump-mapped cube, a bitmap-textured floor; the block march and
+  the batched regen body;
+* `lights_showcase` — a test scene of every other emitter and texture
+  feature: emissive and diffuse analytic spheres of radii 0.02 to 2,
+  a disk and a cylinder, glossy plates over a checkerboard floor, two
+  alpha-masked quads, a point, a spot with a projection bitmap, a
+  directional light, a sun with its bitmap, a constant sky; 14
+  triangles, the dense sweep and the unbatched body's alpha walk.
+
+Every texture and the envmap are made in code from fixed formulas and
+seeds, so nothing is read from disk.
 """
 
 from __future__ import annotations
@@ -27,6 +43,8 @@ from mcpt_tpu_torch.scene.ir import (
     BsdfInfo,
     BsdfType,
     CameraInfo,
+    EmitterInfo,
+    EmitterType,
     InstanceInfo,
     IntegratorInfo,
     MeshData,
@@ -199,3 +217,240 @@ def cornell_mesh_materials(res=512, spp=16, depth_max=8, depth_rr=5):
         shape="rectangle", id_bsdf=pane,
         to_world=_xform(scale=(0.35, 0.3, 1.0), t=(0.35, 0.31, 0.85))))
     return cfg
+
+
+def sky_envmap(width=2048, height=1024):
+    """A lat-long HDR sky (row 0 at +y): a zenith-to-horizon gradient, a
+    dim ground, and a 16 x 8 texel sun patch 2e4 times the sky's
+    brightness at theta 0.3 pi, phi 0.35 * 2pi — so importance sampling
+    matters.  [H, W, 3] f32."""
+    theta = (np.arange(height, dtype=np.float32) + 0.5) / height * np.pi
+    up = np.clip(np.cos(theta), 0.0, 1.0)[:, None]
+    zenith = np.array([0.25, 0.45, 1.0], np.float32)
+    horizon = np.array([1.0, 0.9, 0.75], np.float32)
+    ground = np.array([0.12, 0.1, 0.08], np.float32)
+    row = np.where((theta < np.pi / 2)[:, None],
+                   horizon + (zenith - horizon) * up, ground)
+    sky = np.broadcast_to(row[:, None, :], (height, width, 3)).copy()
+    r0, c0 = int(0.3 * height), int(0.35 * width)
+    sky[r0:r0 + height // 128, c0:c0 + width // 128] = 2e4
+    return sky.astype(np.float32)
+
+
+def _tile_bitmap(size=1024, seed=7):
+    """An RGB floor of 16 x 16 tiles, each its own earthy tone, with dark
+    grout and per-texel grain.  [size, size, 3] f32."""
+    r = np.random.default_rng(seed)
+    n = 16
+    tones = 0.25 + 0.5 * r.random((n, n, 3)).astype(np.float32)
+    tones *= np.array([1.0, 0.85, 0.7], np.float32)
+    cell = size // n
+    img = np.repeat(np.repeat(tones, cell, 0), cell, 1)
+    img *= 0.9 + 0.1 * r.random((size, size, 1)).astype(np.float32)
+    grout = (np.arange(size) % cell) < max(cell // 16, 1)
+    img[grout] = 0.05
+    img[:, grout] = 0.05
+    return img.astype(np.float32)
+
+
+def _ripple_bump(size=128, waves=6, amplitude=0.02):
+    """A mono bump map: amplitude * (1.05 + sin(waves 2pi u) sin(waves 2pi
+    v)).  Positive, since a bump reads the color's length, and near 0:
+    the forward difference at 1e-4 scales the length's rounding by 1e4,
+    and values near 0 round finely."""
+    t = (np.arange(size, dtype=np.float32) + 0.5) / size * 2.0 * np.pi * waves
+    return (amplitude * (1.05 + np.sin(t)[:, None] * np.sin(t)[None, :])
+            ).astype(np.float32)
+
+
+def envmap_matpreview(res=512, spp=16, depth_max=8, depth_rr=5):
+    """A matpreview-class scene lit by the 2048 x 1024 `sky_envmap` alone
+    (2,097,152 texels: its alias table is built by the native-order
+    build): the 51,200-triangle UV sphere (160 x 160) in rough GGX gold
+    (alpha 0.2, Kulla-Conty on), a diffuse cube with a 128 x 128 ripple
+    bump map, and a 12 x 12 floor whose albedo is a 1024 x 1024 RGB tile
+    bitmap repeated 3 x 3 by its uv transform.  51,214 triangles, all
+    opaque, no area light: the block march and the batched regen body
+    with one shadow query (the envmap's).  The cube stands 0.01 above the
+    floor: a bottom face in the floor's plane would tie with the floor at
+    one t, its winner decided by rounding (z-fighting)."""
+    tex = TextureBuilder()
+    bsdfs = [
+        BsdfInfo(btype=BsdfType.CONDUCTOR,
+                 id_roughness_u=tex.add_constant([0.2] * 3),
+                 id_roughness_v=tex.add_constant([0.2] * 3),
+                 reflectivity=np.array([0.944, 0.776, 0.373], np.float32),
+                 edgetint=np.array([0.998, 0.981, 0.751], np.float32)),
+        BsdfInfo(btype=BsdfType.DIFFUSE,
+                 id_diffuse_reflectance=tex.add_constant([0.6, 0.62, 0.65]),
+                 id_bump_map=tex.add_bitmap(_ripple_bump())),
+        BsdfInfo(btype=BsdfType.DIFFUSE,
+                 id_diffuse_reflectance=tex.add_bitmap(
+                     _tile_bitmap(), uv_transform=[3, 0, 0, 0, 3, 0])),
+    ]
+    sky = tex.add_bitmap(sky_envmap())
+    instances = [
+        InstanceInfo(shape="mesh", mesh=uv_sphere_mesh(160, 160), id_bsdf=0,
+                     to_world=_xform(t=(0.0, 1.0, 0.0))),
+        InstanceInfo(shape="cube", id_bsdf=1,
+                     to_world=_xform(scale=(0.45,) * 3, rot_y=30,
+                                     t=(1.7, 0.46, 0.6))),
+        InstanceInfo(shape="rectangle", id_bsdf=2,
+                     to_world=_xform(scale=(6.0, 6.0, 1.0), rot_x=-90)),
+    ]
+    cam = CameraInfo(width=res, height=res, spp=spp, fov_x=40.0,
+                     eye=np.array([0.6, 1.9, 5.2], np.float32),
+                     look_at=np.array([0.5, 0.75, 0.0], np.float32))
+    return RendererConfig(
+        camera=cam,
+        integrator=IntegratorInfo(depth_max=depth_max, depth_rr=depth_rr),
+        textures=tex, bsdfs=bsdfs, instances=instances,
+        emitters=[EmitterInfo(etype=EmitterType.ENVMAP, id_texture=sky)],
+    )
+
+
+def _mask_bitmap(size=64):
+    """An RGBA leaf-and-hole mask: opaque green bars with round holes
+    (alpha 0) on a grid.  [size, size, 4] f32."""
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    holes = ((x * 4) % 1 - 0.5) ** 2 + ((y * 4) % 1 - 0.5) ** 2 < 0.09
+    rgba = np.empty((size, size, 4), np.float32)
+    rgba[..., 0] = 0.2 + 0.3 * x
+    rgba[..., 1] = 0.6
+    rgba[..., 2] = 0.2 + 0.3 * y
+    rgba[..., 3] = np.where(holes, 0.0, 1.0)
+    return rgba
+
+
+def _stripes_bitmap(size=64):
+    """A spot light's projection: RGB stripes.  [size, size, 3] f32."""
+    x = (np.arange(size, dtype=np.float32) + 0.5) / size
+    band = (np.floor(x * 6) % 3).astype(np.int64)
+    colors = np.array([[1.0, 0.3, 0.3], [0.3, 1.0, 0.3], [0.3, 0.3, 1.0]],
+                      np.float32)
+    return np.broadcast_to(colors[band][None], (size, size, 3)).copy()
+
+
+def _sun_bitmap(direction, width=256, height=128, cutoff_deg=1.5,
+                radiance=2000.0):
+    """The lat-long image escaping camera rays see of the sun: zero but a
+    disk of `cutoff_deg` around -direction.  [H, W, 3] f32."""
+    to_sun = -np.asarray(direction, np.float64)
+    to_sun /= np.linalg.norm(to_sun)
+    theta = (np.arange(height) + 0.5) / height * np.pi
+    phi = (np.arange(width) + 0.5) / width * 2.0 * np.pi
+    dirs = np.stack([np.sin(theta)[:, None] * np.cos(phi)[None],
+                     np.broadcast_to(np.cos(theta)[:, None], (height, width)),
+                     np.sin(theta)[:, None] * np.sin(phi)[None]], -1)
+    disk = dirs @ to_sun >= np.cos(np.radians(cutoff_deg))
+    img = np.zeros((height, width, 3), np.float32)
+    img[disk] = radiance
+    return img
+
+
+def lights_showcase(res=512, spp=16, depth_max=8, depth_rr=5):
+    """A veach-MIS-class test scene of the emitter, texture and quadric
+    features (not a user's scene):
+
+    * four glossy plates (GGX conductors, alpha 0.01 to 0.2, Kulla-Conty
+      on) over a diffuse floor with a checkerboard of 8 x 8 per uv unit,
+      its edges shifted off the image's center line;
+    * analytic spheres of radii 0.02 to 2: an emissive one of radius
+      0.25 (one emissive CDF cell), a mirror-like one of radius 0.08, a
+      diffuse bead of radius 0.02 and a diffuse ball of radius 2 behind;
+      a diffuse disk on an open cylinder.  The light is not a small
+      sphere: a shadow ray toward a point near a sphere's silhouette
+      meets the sphere itself at a root whose rounding error grows as
+      1/r, and within EPSILON_DISTANCE of the point that decides the
+      occlusion by the last ulp (the card's sin and cos, and XLA's
+      contractions, round otherwise than the CPU's torch);
+    * two quads masked by an RGBA bitmap (alpha 0 in round holes), one
+      above the plates, one standing on the floor, both across light
+      paths, so that shadow rays take the alpha walk;
+    * a point light, a spot with a striped projection bitmap, a
+      directional light, a sun (cone 1.5 deg) with its bitmap, and a
+      constant sky.
+
+    14 triangles and 6 quadric rows: the dense sweep, the unbatched regen
+    body (opacity maps), six shadow queries a vertex."""
+    tex = TextureBuilder()
+    bsdfs = []
+
+    def add(**kw):
+        bsdfs.append(BsdfInfo(**kw))
+        return len(bsdfs) - 1
+
+    white = tex.add_constant([0.7, 0.7, 0.7])
+    # the checker's edges are shifted off u, v = 0.5: the camera looks down
+    # x = 0, and an edge there would be crossed by rounding alone
+    checker = tex.add_checkerboard([0.75, 0.75, 0.72], [0.2, 0.22, 0.25],
+                                   uv_transform=[8, 0, 0.13, 0, 8, 0.29])
+    floor = add(btype=BsdfType.DIFFUSE, id_diffuse_reflectance=checker)
+    diffuse = add(btype=BsdfType.DIFFUSE, id_diffuse_reflectance=white)
+    plates = []
+    for alpha in (0.01, 0.04, 0.1, 0.2):
+        a = tex.add_constant([alpha] * 3)
+        plates.append(add(
+            btype=BsdfType.CONDUCTOR, id_roughness_u=a, id_roughness_v=a,
+            reflectivity=np.array([0.9, 0.9, 0.92], np.float32),
+            edgetint=np.array([0.95, 0.95, 0.95], np.float32)))
+    light = add(btype=BsdfType.AREA_LIGHT,
+                id_radiance=tex.add_constant([6.0, 6.5, 9.0]))
+    mask = add(btype=BsdfType.DIFFUSE, id_diffuse_reflectance=white,
+               id_opacity=tex.add_bitmap(_mask_bitmap()))
+
+    instances = [InstanceInfo(shape="rectangle", id_bsdf=floor,
+                              to_world=_xform(scale=(5, 5, 1), rot_x=-90))]
+    for i, row in enumerate(plates):
+        instances.append(InstanceInfo(
+            shape="rectangle", id_bsdf=row,
+            to_world=_xform(scale=(1.2, 0.18, 1), rot_x=-90 + 20 + 12 * i,
+                            t=(0.0, 0.25 + 0.3 * i, 1.0 - 0.45 * i))))
+    instances += [
+        InstanceInfo(shape="sphere", id_bsdf=light, radius=0.25,
+                     center=np.array([0.8, 2.0, -0.2], np.float32)),
+        InstanceInfo(shape="sphere", id_bsdf=plates[0], radius=0.08,
+                     center=np.array([-0.8, 1.9, 0.2], np.float32)),
+        InstanceInfo(shape="sphere", id_bsdf=diffuse, radius=2.0,
+                     center=np.array([0.0, 2.0, -5.0], np.float32)),
+        InstanceInfo(shape="sphere", id_bsdf=diffuse, radius=0.02,
+                     center=np.array([0.3, 0.5, 1.5], np.float32)),
+        InstanceInfo(shape="cylinder", id_bsdf=diffuse, radius=0.12,
+                     p0=np.array([-1.8, 0.0, 0.6], np.float32),
+                     p1=np.array([-1.8, 0.59, 0.6], np.float32)),
+        InstanceInfo(shape="disk", id_bsdf=diffuse,
+                     to_world=_xform(scale=(0.7, 0.7, 0.7), rot_x=-90,
+                                     t=(-1.8, 0.6, 0.6))),
+        InstanceInfo(shape="rectangle", id_bsdf=mask,
+                     to_world=_xform(scale=(0.6, 0.6, 1), rot_x=90,
+                                     t=(1.2, 1.5, 0.5))),
+        InstanceInfo(shape="rectangle", id_bsdf=mask,
+                     to_world=_xform(scale=(0.5, 0.5, 1), rot_y=-35,
+                                     t=(1.6, 0.5, 1.2))),
+    ]
+    sun_dir = np.array([-0.4, -0.75, -0.5], np.float32)
+    emitters = [
+        EmitterInfo(etype=EmitterType.POINT,
+                    position=np.array([1.3, 2.2, 0.8], np.float32),
+                    intensity=np.array([6.0, 6.0, 5.0], np.float32)),
+        EmitterInfo(etype=EmitterType.SPOT, cutoff_angle=25.0, beam_width=18.0,
+                    intensity=np.array([12.0, 12.0, 12.0], np.float32),
+                    id_texture=tex.add_bitmap(_stripes_bitmap()),
+                    to_world=_xform(rot_x=90, t=(-1.0, 2.6, 1.2))),
+        EmitterInfo(etype=EmitterType.DIRECTIONAL,
+                    direction=np.array([0.3, -1.0, 0.2], np.float32),
+                    radiance=np.array([0.3, 0.3, 0.35], np.float32)),
+        EmitterInfo(etype=EmitterType.SUN, direction=sun_dir, cutoff_angle=1.5,
+                    radiance=np.array([1.2, 1.1, 0.9], np.float32),
+                    id_texture=tex.add_bitmap(_sun_bitmap(sun_dir))),
+        EmitterInfo(etype=EmitterType.CONSTANT,
+                    radiance=np.array([0.08, 0.1, 0.14], np.float32)),
+    ]
+    cam = CameraInfo(width=res, height=res, spp=spp, fov_x=45.0,
+                     eye=np.array([0.0, 2.2, 5.5], np.float32),
+                     look_at=np.array([0.0, 0.7, 0.0], np.float32))
+    return RendererConfig(
+        camera=cam,
+        integrator=IntegratorInfo(depth_max=depth_max, depth_rr=depth_rr),
+        textures=tex, bsdfs=bsdfs, instances=instances, emitters=emitters,
+    )

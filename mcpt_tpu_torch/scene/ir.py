@@ -2,9 +2,9 @@
 contract between scene construction and `compile_scene`, as host-side
 dataclasses holding numpy — never tensors.
 
-A copy, field for field, of the reference classes the main path uses, so
-one RendererConfig converts into the other.  `emitters` and `media` stay
-in RendererConfig; compile_scene refuses them until their slices land.
+A copy, field for field, of the reference classes the port renders, so
+one RendererConfig converts into the other.  `media` stays in
+RendererConfig; compile_scene refuses it until its slice lands.
 """
 
 from __future__ import annotations
@@ -28,6 +28,20 @@ class BsdfType(enum.IntEnum):
     THIN_DIELECTRIC = 5
     PLASTIC = 6
     CLEARCOAT_CONDUCTOR = 7
+
+
+class EmitterType(enum.IntEnum):
+    # analytic (non-area) emitters (csrt emitter.hpp:19-28)
+    POINT = 0
+    SPOT = 1
+    DIRECTIONAL = 2
+    SUN = 3
+    ENVMAP = 4
+    CONSTANT = 5
+
+
+class TextureRef(int):
+    """Index into the scene's texture list."""
 
 
 @dataclasses.dataclass
@@ -133,6 +147,31 @@ class InstanceInfo:
     id_bsdf: int = -1
     id_medium_int: int = -1
     id_medium_ext: int = -1
+
+
+@dataclasses.dataclass
+class EmitterInfo:
+    etype: EmitterType = EmitterType.POINT
+    position: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(3, np.float32)
+    )
+    intensity: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.ones(3, np.float32)
+    )
+    direction: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([0.0, -1.0, 0.0], np.float32)
+    )
+    radiance: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.ones(3, np.float32)
+    )
+    # spot
+    cutoff_angle: float = 20.0
+    beam_width: float = 15.0
+    id_texture: int = -1
+    to_world: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.eye(4, dtype=np.float32)
+    )
+    scale: float = 1.0
 
 
 @dataclasses.dataclass

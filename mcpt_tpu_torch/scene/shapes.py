@@ -2,8 +2,9 @@
 mcpt_tpu/scene/shapes.py; csrt src/rtcore/scene.cpp:196-281).
 
 Rectangle and cube tessellate exactly like the reference, and mesh
-instances pass through, so prim k here is prim k there.  Analytic
-sphere/disk/cylinder are ROADMAP item 15.
+instances pass through, so prim k here is prim k there.  Spheres, disks
+and cylinders are never tessellated: compile_scene makes them analytic
+quadric rows (ops/quadric.py), as the reference's does.
 """
 
 from __future__ import annotations
@@ -91,10 +92,6 @@ def instance_triangles(info: InstanceInfo):
         mesh = info.mesh
         if mesh is None:
             raise ValueError("mesh instance without mesh data")
-    elif info.shape in ("sphere", "disk", "cylinder"):
-        raise NotImplementedError(
-            f"{info.shape} instances: analytic quadrics are ROADMAP item 15"
-        )
     else:
         raise ValueError(f"unsupported shape '{info.shape}'")
 

@@ -1,12 +1,14 @@
 """Where one frame of the main path spends its time on the card.
 
     python -m mcpt_tpu_torch.tools.profile_frame [--res 512] [--spp 16]
-        [--scene cornell|sphere|march|pairs|materials] [--frames 1]
+        [--scene cornell|sphere|march|pairs|materials|envmap|lights]
+        [--frames 1]
 
 Renders a built-in scene (scene/builtin.py: the Cornell box, the box with
 the 16200-triangle sphere, one of the two mesh scenes past
-DENSE_MAX_PRIMS, one per large-scene route, or the march scene in every
-BSDF family) once to warm up and times
+DENSE_MAX_PRIMS, one per large-scene route, the march scene in every
+BSDF family, the envmap scene or the lights scene) once to warm up and
+times
 `--frames` frames with the host clock (their median is the frame wall).
 Then it records one tile-chunk of that frame (the first 64k-pixel tile,
 the first spp chunk: one shade_regen call, 1/8 of a 512x512 16-spp
@@ -41,7 +43,7 @@ def main(argv=None) -> int:
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--scene", default="cornell",
                     choices=("cornell", "sphere", "march", "pairs",
-                             "materials"))
+                             "materials", "envmap", "lights"))
     ap.add_argument("--frames", type=int, default=1,
                     help="frames timed after the warm-up (median reported)")
     args = ap.parse_args(argv)
@@ -60,7 +62,9 @@ def main(argv=None) -> int:
             "sphere": lambda **kw: builtin.cornell_box(sphere=True, **kw),
             "march": builtin.cornell_mesh_march,
             "pairs": builtin.cornell_mesh_pairs,
-            "materials": builtin.cornell_mesh_materials}[args.scene]
+            "materials": builtin.cornell_mesh_materials,
+            "envmap": builtin.envmap_matpreview,
+            "lights": builtin.lights_showcase}[args.scene]
     cfg = make(res=args.res, spp=args.spp)
     r = Renderer(cfg, device="cuda")
 

@@ -6,7 +6,9 @@ blocks all four with a meta-path finder that raises ImportError, then
 imports every module of the port and chip_smoke, and renders on the CPU
 a 16x16, 1-spp Cornell box and an 8x8 frame of each mesh scene: one down
 each large-scene route, and the materials scene (every BSDF family, the
-batched body).  A scan of the sources catches an import
+batched body); and an 8x8 frame of the envmap scene (the envmap's alias
+table, bitmap and bump textures, the batched body) and of the lights
+scene (analytic emitters and quadrics, the alpha walk).  A scan of the sources catches an import
 statement of any of them, even one on a path the subprocess does not run.
 """
 
@@ -45,7 +47,8 @@ import chip_smoke
 
 from mcpt_tpu_torch.render.renderer import Renderer
 from mcpt_tpu_torch.scene.builtin import (
-    cornell_box, cornell_mesh_march, cornell_mesh_materials, cornell_mesh_pairs)
+    cornell_box, cornell_mesh_march, cornell_mesh_materials, cornell_mesh_pairs,
+    envmap_matpreview, lights_showcase)
 from mcpt_tpu_torch.ops.traversal import resolved_strategy
 img = Renderer(cornell_box(res=16, spp=1), device="cpu").render(spp=1)
 assert img.shape == (16, 16, 3) and (img >= 0).all() and img.mean() > 0, img.mean()
@@ -55,6 +58,10 @@ for make, route in ((cornell_mesh_march, "march"), (cornell_mesh_pairs, "pairs")
     assert resolved_strategy(r.scene.geom) == route
     img = r.render(spp=1)
     assert img.shape == (8, 8, 3) and (img >= 0).all() and img.mean() > 0, route
+for make in (envmap_matpreview, lights_showcase):
+    r = Renderer(make(res=8, spp=1, depth_max=3), device="cpu")
+    img = r.render(spp=1)
+    assert img.shape == (8, 8, 3) and (img >= 0).all() and img.mean() > 0, make
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names))

@@ -284,6 +284,50 @@ def test_march_sweep_kernel_on_the_batched_input(monkeypatch, setting):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(K2_SETTINGS))
+def test_march_sweep_kernel_on_the_envmap_batched_input(monkeypatch, setting):
+    """The batched body's input on the envmap scene
+    (chip_smoke.batched_input(envmap=True)): 65536 continuations and 65536
+    shadow segments toward envmap samples, t_max = MAX_FLOAT/2 - 1e-4
+    (finite), classes 0-3, in block order; closest and any hit."""
+    from chip_smoke import batched_input
+
+    dev = _cuda()
+    for k, v in K2_SETTINGS[setting].items():
+        monkeypatch.setenv(k, v)
+    label, g, args = batched_input(dev, envmap=True)
+    assert label == "envmap batched" and len(args[0]) == 131072
+    assert bool(torch.isfinite(args[3]).all())
+    assert int((args[3] > 1e37).sum()) > 0  # the envmap's shadow segments
+    for any_hit in (False, True):
+        _check_march(args, g, any_hit, (g.march_super_min, g.march_super_max))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["lights camera", "lights bounce",
+                                   "lights walk"])
+def test_dense_sweep_kernel_on_the_lights_scene(label):
+    """K1 on the lights scene's 14 triangles (chip_smoke.lights_inputs):
+    camera rays, first-bounce rays and the alpha walk's second steps
+    (t_min past the segment's first hit), every output bit-equal to the
+    plain version, closest and any hit."""
+    from chip_smoke import lights_inputs, same_hits
+
+    dev = _cuda()
+    tris, inputs = lights_inputs(dev)
+    o, d, lo, hi = dict((x[0], x[1:]) for x in inputs)[label]
+    for any_hit in (False, True):
+        before = ds.launches
+        got = ds.dense_sweep(o, d, lo, hi, tris, any_hit=any_hit)
+        torch.cuda.synchronize()
+        assert ds.launches == before + 1
+        ref = ds.dense_sweep_plain(o, d, lo, hi, tris, any_hit=any_hit)
+        _, n_hit, _ = same_hits(got, ref, o, d, tris, lo,
+                                f"K1 {label} any_hit={any_hit}", any_hit)
+        assert n_hit > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2, 8, 14])
 @pytest.mark.parametrize("kind", ["soup", *CORRIDOR_CASES])
 def test_corridor_kernel_equals_plain(monkeypatch, kind, k):

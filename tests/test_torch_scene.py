@@ -50,15 +50,20 @@ def _convert(obj, ir, builder_cls):
         return [_convert(x, ir, builder_cls) for x in obj]
     if isinstance(obj, (JaxTextureBuilder, TorchTextureBuilder)):
         out = builder_cls()
-        for info in obj.infos:
-            assert info["type"] == 1, "only constant textures convert"
-            out.add_constant(info["color0"])
+        for tid, info in enumerate(obj.infos):
+            if info["type"] == 1:
+                out.add_constant(info["color0"])
+            elif info["type"] == 2:
+                out.add_checkerboard(info["color0"], info["color1"],
+                                     info.get("uv_transform"))
+            else:
+                out.add_bitmap(obj.bitmap_pixels(tid), info.get("uv_transform"))
         return out
     return obj
 
 
 def enum_types():
-    return (jir.BsdfType, tir.BsdfType)
+    return (jir.BsdfType, tir.BsdfType, jir.EmitterType, tir.EmitterType)
 
 
 def to_torch_config(cfg):
@@ -102,16 +107,26 @@ def reference_leaf(ref: dict, key: str) -> np.ndarray:
 
 
 def torch_scene_arrays(scene) -> dict:
+    """The port SceneData's tensors as {dotted field name: ndarray}; the
+    static fields of its tables (texture kinds, column kinds, the envmap's
+    size) are not leaves, as in the reference."""
     out = {}
-    for group in ("geom", "tex", "bsdf", "em"):
+    for group in ("geom", "tex", "bsdf", "em", "emitters", "env", "quad"):
         tables = getattr(scene, group)
         for f in tables._fields:
-            out[f"{group}.{f}"] = getattr(tables, f).cpu().numpy()
+            value = getattr(tables, f)
+            if isinstance(value, torch.Tensor):
+                out[f"{group}.{f}"] = value.cpu().numpy()
     for f in ("map_inst_bsdf", "map_inst_light_pdf", "brdf_avg",
               "albedo_avg"):
         out[f] = getattr(scene, f).cpu().numpy()
     return out
 
+
+#: the static facts of SceneData, equal in both packages
+STATIC_FACTS = ("present_types", "emitter_rows", "env_kind", "env_row",
+                "sun_row", "has_bump", "has_opacity", "quad_kinds",
+                "em_quad_cells", "all_opaque", "surface_kinds")
 
 #: the Kulla-Conty tables' tolerance (tests/test_torch_bsdf.py)
 KC_ATOL = {"brdf_avg": 5e-4, "albedo_avg": 1e-5}
@@ -186,7 +201,7 @@ def test_compile_scene_leaves_equal(name):
     ref = jax_scene_arrays(jscene)
     scene = compile_scene(tcfg, device="cpu")
     got = torch_scene_arrays(scene)
-    assert len(got) == 68
+    assert len(got) == 98
     for key, value in got.items():
         want = reference_leaf(ref, key)
         assert value.dtype == want.dtype, key
@@ -196,9 +211,8 @@ def test_compile_scene_leaves_equal(name):
         else:
             np.testing.assert_array_equal(value, want, err_msg=key)
     assert scene.n_emissive == jscene.n_emissive > 0
-    assert scene.present_types == jscene.present_types
-    assert scene.has_opacity == jscene.has_opacity
-    assert scene.all_opaque == jscene.all_opaque
+    for fact in STATIC_FACTS:
+        assert getattr(scene, fact) == getattr(jscene, fact), fact
     if name == "materials_box_scene":
         assert len(scene.present_types) == 8 and scene.brdf_avg.any()
 
@@ -260,22 +274,20 @@ def test_camera_rays_match(res):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("opacity", "item 14"),
-    ("emitter", "item 14"),
-    ("sphere", "item 15"),
+    ("media", "item 16"),
+    ("null_boundary", "item 16"),
+    ("bdpt", "items 16-17"),
     ("volpath", "items 16-17"),
     ("mesh_packet_traversal", "item 22"),
 ])
 def test_out_of_slice_scenes_are_refused(monkeypatch, case, item):
     cfg = cornell_torch_config()
-    if case == "opacity":
-        cfg.bsdfs[0].id_opacity = cfg.textures.add_constant([0.5] * 3)
-    elif case == "emitter":
-        cfg.emitters.append(object())
-    elif case == "sphere":
-        cfg.instances.append(tir.InstanceInfo(shape="sphere", id_bsdf=0))
-    elif case == "volpath":
-        cfg.integrator.itype = "volpath"
+    if case == "media":
+        cfg.media.append(object())
+    elif case == "null_boundary":
+        cfg.instances.append(tir.InstanceInfo(shape="sphere", id_bsdf=-1))
+    elif case in ("bdpt", "volpath"):
+        cfg.integrator.itype = case
     else:
         # a mesh past DENSE_MAX_PRIMS renders through the march or the
         # pair traversal; the reference's packet traversal is not ported
