@@ -10,10 +10,13 @@ Phases, one short line each:
                  hit and any-hit, on (a) 16384 random triangles x 65536
                  random rays and (b) the Cornell box's triangles against a
                  512x512 frame's first tile of camera rays and first-bounce
-                 rays; K1's times and roofline bound at (a), beside its time
-                 before the redesign; then every kernel shape (slices per
-                 ray x rays per thread) checked on 65536 random rays at 64
-                 to 16384 random triangles and on (b)'s bounce rays
+                 rays, (c) the lights scene's camera, bounce and alpha-walk
+                 rays and (d) the volumetric-caustic scene's shadow rays
+                 across its null faces; K1's times and roofline bound at
+                 (a), beside its time before the redesign; then every
+                 kernel shape (slices per ray x rays per thread) checked on
+                 65536 random rays at 64 to 16384 random triangles and on
+                 (b)'s bounce rays
   render-cornell the main path: Renderer.render of the built-in Cornell box at
                  512x512, 16 spp, depth 8 (64k-ray tiles, spp chunks of 8),
                  timed after one warm-up frame; then a 64x64 card render
@@ -73,12 +76,29 @@ Phases, one short line each:
                  the unbatched body: every shadow query walks its alpha
                  crossings by closest hits, so K1 makes 1 + 6 x 4 closest-hit
                  launches a wavefront iteration and no any-hit one
+  render-volcaustic the volumetric-caustic scene (volumetric_caustic: a
+                 glass sphere in a box of isotropic fog behind null faces,
+                 a small area light above) through the volpath integrator's
+                 regen body at 512x512, 16 spp, depth 16 after a 1-spp
+                 warm-up frame: K1 closest-hit and any-hit launches (the
+                 shadow rays cross the fog's null faces), none of K2-K4;
+                 then 64x64 card renders held against the CPU's for the
+                 isotropic and the Henyey-Greenstein (g = -0.5) fog
+  engine-chunked the chunked per-sample engine (render_pixels and the
+                 integrators' shade): 64x64 card renders held against the
+                 CPU's on the Cornell box (path.shade) and the isotropic
+                 volumetric-caustic scene (volpath.shade)
+  s1-means       the rounding-amplifying test scene (bump_and_bead: a
+                 ripple bump map and an emissive sphere of radius 0.02),
+                 64x64 4 spp card vs CPU: the share of pixels close is
+                 printed, the channel means must agree within 1e-3
   device-times   each kernel's device time per launch at its timed input,
                  and K1's shape sweep: every shape's device time at each
                  table size of kernel-K1 (the evidence for shape_for); then
-                 one tile-chunk of render-envmap's and render-lights' frames
-                 under torch.profiler: device busy time, idle share against
-                 the same tile-chunk unprofiled, device activities
+                 one tile-chunk of render-envmap's, render-lights' and
+                 render-volcaustic's frames under torch.profiler: device
+                 busy time, idle share against the same tile-chunk
+                 unprofiled, device activities, K1 launches
 Kernel times ("ms") are the median time between CUDA events around one
 wrapper call (cuda_ms), which also counts the wrapper's host time; each
 kernel's device time per launch from torch.profiler (kernel_ms) is taken
@@ -110,6 +130,9 @@ TILE, SPP_CHUNK = 1 << 16, 8
 #: bench.py's ray-count convention: per camera sample, the primary ray
 #: plus a shadow ray and a continuation per bounce, ~5.5 bounces
 AVG_BOUNCES = 5.5
+#: the reference suite's ray-count convention for the volumetric-caustic
+#: scene (scripts/bench_suite.py): 4.0 bounces per sample
+VOL_AVG_BOUNCES = 4.0
 #: fp32 operations per (ray, triangle) pair in csrc/dense_sweep.cu's inner
 #: loop: p = d x e2 (9), det (5), t0 = o - p0 (3), v (6), q = t0 x e1 (9),
 #: w (6), t (6), v + w (1), the division (1)
@@ -513,6 +536,37 @@ def lights_inputs(dev):
                   ("lights walk", o_b, d_s, t_lo, t_hi2)]
 
 
+def volcaustic_inputs(dev):
+    """K1's shadow-ray inputs on the volumetric-caustic scene at the main
+    path's shape: 65536 segments toward uniform points of its area light,
+    from uniform points in the fog box (medium vertices) and on the floor
+    under it, as NEE traces them (t_max = distance - EPSILON_DISTANCE:
+    the box's null faces lie across them) and again past the light
+    (t_max = MAX_FLOAT: null-shell rows in front of the opaque light's).
+    Returns (triangles, [(label, o, d, t_min, t_max)])."""
+    import torch
+
+    from mcpt_tpu_torch.ops.math import EPSILON_DISTANCE, MAX_FLOAT
+    from mcpt_tpu_torch.scene.builtin import volumetric_caustic
+
+    scene, _ = _scene(volumetric_caustic, dev)
+    r = np.random.default_rng(11)
+    n = TILE
+    o = r.uniform([-1.5, 0.05, -1.5], [1.5, 2.05, 1.5], size=(n, 3))
+    o[n // 2:, 1] = 0.0  # the floor under the box
+    light = np.stack([r.uniform(-0.3, 0.3, n), np.full(n, 3.05),
+                      r.uniform(-0.3, 0.3, n)], -1)
+    o = torch.as_tensor(o.astype(np.float32), device=dev)
+    to_l = torch.as_tensor(light.astype(np.float32), device=dev) - o
+    dist = to_l.norm(dim=-1)
+    d = (to_l / dist[:, None]).contiguous()
+    lo = torch.full((n,), EPSILON_DISTANCE, device=dev)
+    return scene.geom.packed_tris, [
+        ("volcaustic shadow", o, d, lo, dist - EPSILON_DISTANCE),
+        ("volcaustic past the light", o, d, lo,
+         torch.full((n,), MAX_FLOAT, device=dev))]
+
+
 def phase_kernel(dev):
     import torch
 
@@ -590,6 +644,15 @@ def phase_kernel(dev):
     say(f"kernel-K1(c): lights scene {TILE}x{tris_c.shape[0]} camera, bounce "
         f"and walk rays ({int((walk[3] > walk[2]).sum())} live) match plain; "
         f"walk sweep {ms_c:.4f} ms between events")
+
+    # (d) the volumetric-caustic scene's shadow rays, across null shells
+    tris_d, vol = volcaustic_inputs(dev)
+    for label, *rays in vol:
+        for err, n_hit, _ in _k1_pair(*rays, tris_d, f"K1(d) {label}"):
+            max_err = max(max_err, err)
+    say(f"kernel-K1(d): volcaustic scene {TILE}x{tris_d.shape[0]} shadow "
+        f"rays to the light and past it match plain, closest and any hit "
+        f"(null-shell rows skipped by any-hit)")
 
     rec = {
         "name": "dense_sweep", "route": "cuda",
@@ -703,22 +766,26 @@ def phase_render_cornell(dev, smi):
     return n_closest + n_any
 
 
-def card_vs_cpu(make_config, dev, label):
+def card_vs_cpu(make_config, dev, label, engine=None, gate_pixels=True):
     """The same 64x64, 4 spp render on the card and on the CPU (plain
-    versions), same seeds: >= 99% of pixels within rtol 1e-3, atol 1e-4,
-    channel means within 1e-3 relative."""
+    versions), same seeds, by `engine` (None: the renderer's default):
+    >= 99% of pixels within rtol 1e-3, atol 1e-4 (printed only where
+    gate_pixels is False), channel means within 1e-3 relative."""
     from mcpt_tpu_torch.render.renderer import Renderer
 
     small = make_config(res=64, spp=4)
-    a = Renderer(small, device=dev).render(spp=4, tile=TILE, spp_chunk=4)
-    b = Renderer(small, device="cpu").render(spp=4, tile=TILE, spp_chunk=4)
+    kw = dict(spp=4, tile=TILE, spp_chunk=4, engine=engine)
+    a = Renderer(small, device=dev).render(**kw)
+    b = Renderer(small, device="cpu").render(**kw)
     _check_image(a, f"{label} 64x64")
     close = np.isclose(a, b, rtol=1e-3, atol=1e-4).all(axis=-1)
     rel = np.abs(a.mean(axis=(0, 1)) / b.mean(axis=(0, 1)) - 1.0)
     say(f"{label}: 64x64 4spp card vs cpu: {close.mean() * 100:.2f}% "
         f"pixels within rtol 1e-3 atol 1e-4, channel means rel diff "
-        f"{rel.max():.2e}")
-    if close.mean() < 0.99 or rel.max() > 1e-3:
+        f"{rel.max():.2e} (means card "
+        f"{np.round(a.mean(axis=(0, 1)), 5).tolist()}, cpu "
+        f"{np.round(b.mean(axis=(0, 1)), 5).tolist()})")
+    if (gate_pixels and close.mean() < 0.99) or rel.max() > 1e-3:
         raise AssertionError(f"{label}: card and CPU renders disagree")
 
 
@@ -1353,25 +1420,28 @@ def phase_render_lights(dev, smi):
 
 def tile_chunk_profile(r, label, smi):
     """One tile-chunk of a renderer's frame (the first 64k pixels, one spp
-    chunk of 8: 1/8 of a 512x512 16-spp frame) timed, then again under
-    torch.profiler: the device's busy time, its idle share of the
-    unprofiled wall, and the device activities (kernels, copies, sets)."""
+    chunk of 8: 1/8 of a 512x512 16-spp frame) by the regen engine timed,
+    then again under torch.profiler: the device's busy time, its idle
+    share of the unprofiled wall, the device activities (kernels, copies,
+    sets) and the unprofiled run's K1 launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mcpt_tpu_torch.integrators.path import shade_regen
+    from mcpt_tpu_torch.render.renderer import render_tile_regen
 
     idx = torch.arange(TILE, device=r.device)
 
     def run():
-        shade_regen(r.scene, r.integrator, r.camera, idx, SPP_CHUNK,
-                    frame_base=2, spp_total=SPP)
+        render_tile_regen(r.scene, r.camera, r.integrator, idx, SPP_CHUNK,
+                          frame_base=2, spp_total=SPP)
         torch.cuda.synchronize()
 
+    reset_counts()
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
+    counts = read_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
@@ -1379,9 +1449,70 @@ def tile_chunk_profile(r, label, smi):
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
     say(f"device-times: {label} tile-chunk ({TILE} px x {SPP_CHUNK} spp) "
         f"wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
-        f"{1 - busy / wall:.3f}, {len(events)} device activities, on {smi}")
+        f"{1 - busy / wall:.3f}, {len(events)} device activities, K1 "
+        f"launches {counts['K1'] - counts['K1_any']} closest + "
+        f"{counts['K1_any']} any-hit, on {smi}")
     return {"tile_chunk_wall_s": wall, "device_busy_s": busy,
-            "idle_share": 1 - busy / wall, "device_activities": len(events)}
+            "idle_share": 1 - busy / wall, "device_activities": len(events),
+            "counts": counts}
+
+
+def phase_render_volcaustic(dev, smi):
+    """render-volcaustic: the isotropic volumetric-caustic scene through
+    the volpath regen body and K1, whose any-hit shadow rays cross the
+    fog's null faces; then the isotropic and HG scenes card vs CPU."""
+    from mcpt_tpu_torch.integrators.path import _use_batched_trace
+    from mcpt_tpu_torch.ops.traversal import DENSE_MAX_PRIMS
+    from mcpt_tpu_torch.render.renderer import Renderer
+    from mcpt_tpu_torch.scene.builtin import volumetric_caustic
+
+    depth = 16
+    r = Renderer(volumetric_caustic(depth_max=depth), device=dev)
+    scene = r.scene
+    p = scene.geom.packed_tris.shape[0]
+    if (p > DENSE_MAX_PRIMS or _use_batched_trace(scene) or scene.all_opaque
+            or r.integrator.itype != "volpath"):
+        raise AssertionError("render-volcaustic: not the dense route, the "
+                             "volpath regen body and null shells")
+    r.render(spp=1, tile=TILE, spp_chunk=SPP_CHUNK)  # 1-spp warm-up frame
+    img, wall, counts = _render_timed(r, SPP, frame_base=1)
+    _check_image(img, "render-volcaustic")
+    n_any = counts["K1_any"]
+    n_closest = counts["K1"] - n_any
+    if n_closest <= 0 or n_any <= 0 or counts["K2"] or counts["K3"] \
+            or counts["K4"]:
+        raise AssertionError("render-volcaustic: not K1 alone in both modes "
+                             f"({counts})")
+    rays = RES * RES * SPP * (1 + 2 * VOL_AVG_BOUNCES)
+    say(f"render-volcaustic: {int(scene.geom.opaque.sum())} opaque of "
+        f"{p} padded triangles + {len(scene.quad_kinds)} quadric row, "
+        f"volpath, unbatched body; {RES}x{RES} {SPP}spp d{depth} wall "
+        f"{wall:.3f} s, {rays / wall / 1e6:.2f} Mrays/s (1 + 2 x "
+        f"{VOL_AVG_BOUNCES} rays a sample) on {smi}; K1 launches "
+        f"{n_closest} closest + {n_any} any-hit, K2 0, K3 0, K4 0; mean "
+        f"{np.round(img.mean(axis=(0, 1)), 4).tolist()}")
+    card_vs_cpu(volumetric_caustic, dev, "render-volcaustic isotropic")
+    card_vs_cpu(functools.partial(volumetric_caustic, phase="hg", g=-0.5),
+                dev, "render-volcaustic hg")
+    return counts, wall, r
+
+
+def phase_engine_chunked(dev):
+    """engine-chunked: the chunked per-sample engine card vs CPU, through
+    path.shade (Cornell box) and volpath.shade (volumetric caustic)."""
+    from mcpt_tpu_torch.scene.builtin import cornell_box, volumetric_caustic
+
+    card_vs_cpu(cornell_box, dev, "engine-chunked cornell", engine="chunked")
+    card_vs_cpu(volumetric_caustic, dev, "engine-chunked volcaustic",
+                engine="chunked")
+
+
+def phase_s1_means(dev):
+    """s1-means: the ripple bump map and the emissive sphere of radius
+    0.02 card vs CPU, gated on the channel means only."""
+    from mcpt_tpu_torch.scene.builtin import bump_and_bead
+
+    card_vs_cpu(bump_and_bead, dev, "s1-means", gate_pixels=False)
 
 
 #: frames a side of march-unbatched, alternating with the batched body
@@ -1512,11 +1643,20 @@ def main():
     begin("render-lights")
     c_lights, _, r_lights = phase_render_lights(dev, smi)
     k1["lights_launches"] = c_lights["K1"]
+    begin("render-volcaustic")
+    c_vol, _, r_vol = phase_render_volcaustic(dev, smi)
+    k1["volcaustic_launches"] = {"closest": c_vol["K1"] - c_vol["K1_any"],
+                                 "any_hit": c_vol["K1_any"]}
+    begin("engine-chunked")
+    phase_engine_chunked(dev)
+    begin("s1-means")
+    phase_s1_means(dev)
     begin("device-times")
     phase_device_times(k1, k2, k3, k4)
-    for r, label in ((r_env, "render-envmap"), (r_lights, "render-lights")):
+    for r, label in ((r_env, "render-envmap"), (r_lights, "render-lights"),
+                     (r_vol, "render-volcaustic")):
         tile_chunk_profile(r, label, smi)
-    del r_env, r_lights
+    del r_env, r_lights, r_vol
     k2["launches"] = c_m["K2"] + c_mat["K2"] + c_p["K2"] + c_env["K2"]
     k2["launches_by_path"] = {"render-march": c_m["K2"],
                               "render-materials": c_mat["K2"],

@@ -17,6 +17,10 @@ continuation and then each NEE shadow ray on its own; the batched one
 (_shade_regen_batched, for large all-opaque march-routed scenes, the
 _use_batched_trace gate) traces the continuation and the previous
 vertex's shadow rays in ONE closest-hit call per iteration.
+
+`shade` is the chunked engine's body: one camera sample of a ray batch
+per call, its seed carried from call to call (render/renderer.py::
+render_pixels), the same estimator and vertex draws.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from mcpt_tpu_torch.ops.math import (
     dot,
     mis_weight,
     normalize,
+    sqrt,
     take_rows,
 )
 from mcpt_tpu_torch.ops.quadric import quadric_attrs, sample_quadric_row
@@ -307,7 +312,7 @@ def _nee_area_query(scene: SceneData, hit: HitAttrs, wo, alive, xi0, xi1, xi2):
     (wi, dist, geo_ok, contrib-if-unoccluded) (csrt path.cpp:185-236)."""
     pos_l, n_l, radiance, pdf_area = _sample_area_light(scene, xi0, xi1, xi2)
     d_vec = hit.position - pos_l
-    dist = torch.sqrt(torch.clamp(dot(d_vec, d_vec), min=1e-20))
+    dist = sqrt(torch.clamp(dot(d_vec, d_vec), min=1e-20))
     wi = d_vec / dist[..., None]  # light travel direction: light -> surface
 
     cos_prime = dot(wi, n_l)
@@ -420,6 +425,30 @@ def _escape_pdf(scene: SceneData, look_dir):
     return torch.full(look_dir.shape[:-1],
                       INV_FOUR_PI if scene.env_kind == "constant" else 0.0,
                       dtype=look_dir.dtype, device=look_dir.device)
+
+
+def _chunked_primary(scene, integ, hit, d, through):
+    """The chunked engine's camera-ray terms (path.py:619-643,
+    volpath.py:229-268): where the ray missed, the escape radiance (the
+    envmap or constant sky, then the sun's bitmap), unweighted; where it
+    hit an emitter's front face and `through` holds, the emitter's
+    radiance, unless hide_emitters.  Returns (L, ends): ends marks the
+    lanes whose path stops on an emitter or a one-sided back face."""
+    zeros = torch.zeros_like(d)
+    miss = ~hit.valid
+    L = zeros
+    if scene.env_kind != "none":
+        L = L + _where3(miss, _escape_radiance(scene, d), zeros)
+    if scene.sun_row >= 0:
+        L = L + _where3(miss, emitters.eval_sun_escape(
+            scene.emitters, scene.tex, scene.sun_row, d), zeros)
+    seen = (hit.bsdf_id >= 0) & hit.valid & through
+    emitter = bsdfs.is_emitter(scene.bsdf, hit.bsdf_id) & seen
+    backface = hit.inside & ~bsdfs.is_twosided(scene.bsdf, hit.bsdf_id) & seen
+    if not integ.hide_emitters:
+        L = L + _where3(emitter & ~backface, bsdfs.get_radiance(
+            scene.bsdf, _stex(scene), hit.bsdf_id, hit.uv), zeros)
+    return L, emitter | backface
 
 
 def _escape(scene, L_samp, d, beta, pdf_mis, alive, hit, primary):
@@ -541,6 +570,61 @@ def _fold(integ, L, L_samp, mask):
     return L + _where3(mask, L_samp, torch.zeros_like(L_samp))
 
 
+def _no_lights(scene: SceneData) -> bool:
+    """No emitter at all: only the primary vertex can see radiance."""
+    return (scene.n_emissive == 0 and not scene.emitter_rows
+            and scene.env_kind == "none")
+
+
+def shade(scene: SceneData, integ, o, d, seed, differentiable: bool = False):
+    """One sample of a ray batch, the chunked engine's body
+    (mcpt_tpu/integrators/path.py:593-760): the primary hit and its
+    escape and emitter terms, then up to depth_max - 1 bounces, each RR,
+    NEE, a BSDF sample and the continuation's escape and emitter hit.
+    pdf_mis starts at 1e12, so that an emitter seen through leading null
+    shells takes full weight.  Returns (L [N, 3], seed)."""
+    if differentiable:
+        raise NotImplementedError(
+            "the differentiable estimator: ROADMAP item 18")
+    n = o.shape[0]
+    hit = interpolate_hit(scene, scene_closest(scene, o, d), o, d)
+    hit, seed = apply_opacity(scene, hit, seed)
+    L, ends = _chunked_primary(scene, integ, hit, d, torch.ones_like(hit.valid))
+    alive = hit.valid & ~ends
+    if _no_lights(scene) or integ.depth_max <= 1:
+        return L, seed
+
+    n_nee = nee_draw_count(scene)
+    beta = torch.ones((n, 3), dtype=torch.float32, device=o.device)
+    pdf_mis = torch.full((n,), 1e12, dtype=torch.float32, device=o.device)
+    no = torch.zeros_like(alive)
+    wo = -d
+    dep = 1
+    while dep < integ.depth_max and bool(alive.any()):
+        seed, alive, beta = _roulette(integ, seed, torch.tensor(dep), alive,
+                                      beta)
+        seed, xi_nee = rng.random_floats(seed, n_nee)
+        L = L + beta * _direct_lighting(scene, hit, wo, alive, xi_nee, beta)
+        seed, alive, beta, pdf_mis, o2, d2 = _scatter(
+            scene, hit, wo, seed, alive, beta, pdf_mis)
+
+        ghit = scene_closest(
+            scene, o2, d2,
+            t_max=torch.where(alive, torch.full_like(pdf_mis, MAX_FLOAT),
+                              torch.zeros_like(pdf_mis)))
+        hit = interpolate_hit(scene, ghit, o2, d2)
+        hit, seed = apply_opacity(scene, hit, seed)
+        L = _escape(scene, L, d2, beta, pdf_mis, alive, hit, no)
+        alive = alive & hit.valid
+        L_add, ends = _emitter_hit(scene, integ, hit, d2, beta, pdf_mis,
+                                   alive, no)
+        L = L + L_add
+        alive = alive & ~ends
+        wo = -d2
+        dep += 1
+    return L, seed
+
+
 def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
                 frame_base=0, spp_total: int | None = None, sample_offset=0):
     """Fused spp x depth wavefront with ray regeneration
@@ -561,9 +645,8 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
     dev = pixel_idx.device
     n_nee = nee_draw_count(scene)
     # with no lights (or depth_max 1) only the primary vertex matters
-    no_lights = (scene.n_emissive == 0 and not scene.emitter_rows
-                 and scene.env_kind == "none")
-    depth_cut = 1 if (no_lights or integ.depth_max <= 1) else integ.depth_max
+    depth_cut = (1 if (_no_lights(scene) or integ.depth_max <= 1)
+                 else integ.depth_max)
 
     f32 = dict(dtype=torch.float32, device=dev)
     zeros3 = torch.zeros((n, 3), **f32)

@@ -43,11 +43,17 @@ from mcpt_tpu_torch.ops.math import (
     EPSILON_FLOAT,
     INV_PI,
     PI,
+    arccos,
+    atan2,
+    channel_sum,
+    cos,
     dot,
     normalize,
     reflect,
     refract,
+    sin,
     sqr,
+    sqrt,
     take_rows,
     to_local,
     to_world,
@@ -348,14 +354,14 @@ def _oren_nayar(albedo, sigma, wi_local, wo_local, fast):
     sigma_2 = sqr(sigma * conv)
     n_dot_i = torch.clamp(wi_local[..., 2], 1e-6, 1.0)
     n_dot_o = torch.clamp(wo_local[..., 2], 1e-6, 1.0)
-    sin_i = torch.sqrt(torch.clamp(1.0 - sqr(n_dot_i), min=0.0))
-    sin_o = torch.sqrt(torch.clamp(1.0 - sqr(n_dot_o), min=0.0))
-    theta_i = torch.arccos(n_dot_i)
-    theta_o = torch.arccos(n_dot_o)
-    phi_i = torch.atan2(wi_local[..., 1], wi_local[..., 0])
-    phi_o = torch.atan2(wo_local[..., 1], wo_local[..., 0])
-    cos_phi_diff = (torch.cos(phi_i) * torch.cos(phi_o)
-                    + torch.sin(phi_i) * torch.sin(phi_o))
+    sin_i = sqrt(torch.clamp(1.0 - sqr(n_dot_i), min=0.0))
+    sin_o = sqrt(torch.clamp(1.0 - sqr(n_dot_o), min=0.0))
+    theta_i = arccos(n_dot_i)
+    theta_o = arccos(n_dot_o)
+    phi_i = atan2(wi_local[..., 1], wi_local[..., 0])
+    phi_o = atan2(wo_local[..., 1], wo_local[..., 0])
+    cos_phi_diff = (cos(phi_i) * cos(phi_o)
+                    + sin(phi_i) * sin(phi_o))
 
     i_gt_o = n_dot_i > n_dot_o
     sin_alpha = torch.where(i_gt_o, sin_o, sin_i)
@@ -383,8 +389,8 @@ def _oren_nayar(albedo, sigma, wi_local, wo_local, fast):
     c3 = 0.125 * tmp * sqr(tmp2)
     c4 = 0.17 * sigma_2 / (sigma_2 + 0.13)
     tan_half = (sin_alpha + sin_beta) / (
-        torch.sqrt(torch.clamp(1.0 - sqr(sin_alpha), min=0.0))
-        + torch.sqrt(torch.clamp(1.0 - sqr(sin_beta), min=0.0))
+        sqrt(torch.clamp(1.0 - sqr(sin_alpha), min=0.0))
+        + sqrt(torch.clamp(1.0 - sqr(sin_beta), min=0.0))
         + 1e-12)
     sngl = albedo * (
         c1 + cos_phi_diff * c2 * tan_beta
@@ -469,7 +475,7 @@ def _eval_conductor(tables, tex, kc, bid, uv, wi, wo, n, t, b):
 
 def _sample_dielectric(tables, tex, kc, bid, uv, wo, n, t, b, inside, xi):
     """Rough dielectric reflect/refract (csrt dielectric.cpp:44-146)."""
-    scale = 1.2 - 0.2 * torch.sqrt(torch.abs(dot(-wo, n)))
+    scale = 1.2 - 0.2 * sqrt(torch.abs(dot(-wo, n)))
     au, av = _alphas(tables, tex, bid, uv, scale)
     beck = take_rows(tables.use_beckmann, bid)
     h_local, d_pdf = _sample_ndf(xi[0], xi[1], au, av, beck)
@@ -666,7 +672,7 @@ def _plastic_lobe_weights(tables, tex, bid, uv):
                              take_rows(tables.diffuse_tid, bid), uv)
     ks = _tex_or_white(_ktex(tex, tables, "specular"),
                        take_rows(tables.specular_tid, bid), uv)
-    w_spec = ks.sum(dim=-1) / _safe(kd.sum(dim=-1) + ks.sum(dim=-1))
+    w_spec = channel_sum(ks) / _safe(channel_sum(kd) + channel_sum(ks))
     return kd, ks, w_spec
 
 

@@ -31,11 +31,13 @@ from mcpt_tpu_torch.ops.math import (
     MAX_FLOAT,
     PI,
     TWO_PI,
+    arccos,
     cartesian_to_spherical,
     length,
     local_to_world,
     mat_vec,
     normalize,
+    sin,
     spherical_to_cartesian,
 )
 from mcpt_tpu_torch.ops.warps import sample_cone_uniform, sample_sphere_uniform
@@ -171,7 +173,7 @@ def sample_spot(tables, tex, e, origin):
     fall = torch.where(tid >= 0, tex_fall, torch.ones_like(origin))
     in_transition = dl[..., 2] < tables.cos_beam[e]
     trans = (tables.cutoff_angle[e]
-             - torch.arccos(torch.clamp(dl[..., 2], -1.0, 1.0))
+             - arccos(torch.clamp(dl[..., 2], -1.0, 1.0))
              ) * tables.trans_width_rcp[e]
     fall = fall * torch.where(in_transition, trans,
                               torch.ones_like(trans))[..., None]
@@ -345,7 +347,7 @@ def sample_envmap(env: EnvMapData, tex, origin, xi0, xi1, xi2,
     phi = u * TWO_PI
     wi = -normalize(_rotate(env.to_world, spherical_to_cartesian(theta, phi)))
     tx = env.texel_tab[jj.long()]                # [N, 4] row gather
-    sin_t = torch.clamp(torch.abs(torch.sin(theta)), min=1e-4)
+    sin_t = torch.clamp(torch.abs(sin(theta)), min=1e-4)
     pdf = tx[..., 3] / sin_t
     return wi, _far(origin), tx[..., :3], pdf, pdf > 0.0
 
@@ -373,7 +375,7 @@ def pdf_envmap(env: EnvMapData, tex, look_dir):
     """sample_envmap's pdf of an escaping direction, for MIS (cf. csrt
     envmap.cpp:109-133)."""
     theta, j = _dir_to_texel(env, look_dir)
-    sin_t = torch.clamp(torch.abs(torch.sin(theta)), min=1e-4)
+    sin_t = torch.clamp(torch.abs(sin(theta)), min=1e-4)
     return env.texel_tab[j][..., 3] / sin_t
 
 

@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mcpt_tpu_torch.ops.math import lerp
+from mcpt_tpu_torch.ops.math import lerp, sqrt
 
 TEX_NONE = 0
 TEX_CONSTANT = 1
@@ -219,7 +219,7 @@ def eval_gradient(tex: TextureTables, tid, uv):
                         device=uv.device)
 
     def size(c):
-        return torch.sqrt(c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1]
+        return sqrt(c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1]
                           + c[..., 2] * c[..., 2])
 
     base = size(eval_color(tex, tid, uv))

@@ -38,9 +38,56 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 
+def channel_sum(x):
+    """The sum over the (short) trailing axis, added in index order:
+    x[..., 0] + x[..., 1] + ...  torch's sum over the last axis adds the
+    terms in another order on the card than on the CPU (30% of 3-wide
+    lanes differ, `tools/device_rounding.py`)."""
+    first, *rest = x.unbind(-1)
+    for term in rest:
+        first = first + term
+    return first
+
+
 def dot(a, b, keepdim: bool = False):
-    """Batched dot product over the trailing axis."""
-    return (a * b).sum(dim=-1, keepdim=keepdim)
+    """Batched dot product over the trailing axis, in channel_sum's
+    order."""
+    s = channel_sum(a * b)
+    return s[..., None] if keepdim else s
+
+
+def _in_f64(fn):
+    """`fn` evaluated in float64 and rounded to float32.  torch's float32
+    exp, log1p, sin, cos, tan, atan, atan2 and acos give other bits on
+    the card than on the CPU in 7-36% of lanes (an ulp each,
+    `tools/device_rounding.py`); in float64 both land within rounding of
+    the exact value, so the float32 results agree.  A glass sphere's
+    chains of refractions and the fog's free flights turn one ulp into
+    another path, so renders on the two devices agree only with this."""
+    def stable(*args):
+        return fn(*(a.double() for a in args)).float()
+
+    stable.__name__ = fn.__name__
+    stable.__doc__ = f"torch.{fn.__name__} in float64, rounded to float32."
+    return stable
+
+
+def sqrt(x):
+    """The correctly rounded float32 square root on either device: the
+    card's own (IEEE), and on the CPU, whose vectorized float32 sqrt is
+    an ulp off in ~0.7% of lanes, through float64 (a float64 root rounds
+    to the correctly rounded float32 one)."""
+    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).float()
+
+
+exp = _in_f64(torch.exp)
+log1p = _in_f64(torch.log1p)
+sin = _in_f64(torch.sin)
+cos = _in_f64(torch.cos)
+tan = _in_f64(torch.tan)
+atan = _in_f64(torch.atan)
+atan2 = _in_f64(torch.atan2)
+arccos = _in_f64(torch.arccos)
 
 
 def cross(a, b):
@@ -67,7 +114,7 @@ def mat_vec(m, v):
 
 
 def length(v, keepdim: bool = False):
-    return torch.sqrt(torch.clamp(dot(v, v, keepdim=keepdim), min=1e-20))
+    return sqrt(torch.clamp(dot(v, v, keepdim=keepdim), min=1e-20))
 
 
 def normalize(v):
@@ -98,7 +145,7 @@ def refract(wi, n, eta_inv):
     k = 1.0 - sqr(eta_inv) * (1.0 - sqr(cos_theta))
     ok = (k >= 0.0)[..., 0]
     k = torch.clamp(k, min=0.0)
-    wt = normalize(eta_inv * wi + (eta_inv * cos_theta - torch.sqrt(k)) * n)
+    wt = normalize(eta_inv * wi + (eta_inv * cos_theta - sqrt(k)) * n)
     return ok, wt
 
 
@@ -116,10 +163,10 @@ def build_onb(n):
     """Orthonormal basis (t, b) around unit normal `n` matching the
     reference's local_to_world frame: to_world(v) = v.x*t + v.y*b + v.z*n."""
     ux, uy, uz = n[..., 0], n[..., 1], n[..., 2]
-    len_xz = torch.sqrt(sqr(ux) + sqr(uz))
+    len_xz = sqrt(sqr(ux) + sqr(uz))
     use_xz = len_xz > EPSILON_FLOAT
     inv_xz = 1.0 / torch.clamp(len_xz, min=1e-12)
-    len_yz = torch.sqrt(sqr(uy) + sqr(uz))
+    len_yz = sqrt(sqr(uy) + sqr(uz))
     inv_yz = 1.0 / torch.clamp(len_yz, min=1e-12)
     zero = torch.zeros_like(ux)
     b = torch.where(
@@ -147,8 +194,8 @@ def cartesian_to_spherical(v):
     theta from +y, phi = atan2(z, x) in [0, 2pi) (csrt
     src/utils/math.cpp:100-118)."""
     v = normalize(v)
-    theta = torch.arccos(torch.clamp(v[..., 1], -1.0, 1.0))
-    phi = torch.atan2(v[..., 2], v[..., 0])
+    theta = arccos(torch.clamp(v[..., 1], -1.0, 1.0))
+    phi = atan2(v[..., 2], v[..., 0])
     phi = torch.where(phi < 0.0, phi + TWO_PI, phi)
     return theta, phi
 
@@ -156,9 +203,9 @@ def cartesian_to_spherical(v):
 def spherical_to_cartesian(theta, phi, r=1.0):
     """The exact inverse of :func:`cartesian_to_spherical` (the reference's
     consistent form, not csrt's x/z-swapped SphericalToCartesian)."""
-    sin_t = torch.sin(theta)
-    return torch.stack([r * torch.cos(phi) * sin_t, r * torch.cos(theta),
-                        r * torch.sin(phi) * sin_t], dim=-1)
+    sin_t = sin(theta)
+    return torch.stack([r * cos(phi) * sin_t, r * cos(theta),
+                        r * sin(phi) * sin_t], dim=-1)
 
 
 def local_to_world(local, up):

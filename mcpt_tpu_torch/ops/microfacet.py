@@ -15,7 +15,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mcpt_tpu_torch.ops.math import PI, TWO_PI, sqr
+from mcpt_tpu_torch.ops.math import (
+    PI,
+    TWO_PI,
+    atan,
+    cos,
+    exp,
+    log1p,
+    sin,
+    sqr,
+    sqrt,
+    tan,
+)
 
 
 def _ipow(x, k: int):
@@ -34,9 +45,9 @@ def _ipow(x, k: int):
 def _anisotropic_phi(xi1, alpha_u, alpha_v):
     """phi warped by the anisotropy (Mitsuba convention) and the alpha^2
     along it."""
-    phi = torch.atan(alpha_v / alpha_u * torch.tan(PI + TWO_PI * xi1)) + (
+    phi = atan(alpha_v / alpha_u * tan(PI + TWO_PI * xi1)) + (
         PI * torch.floor(2.0 * xi1 + 0.5))
-    cos_phi, sin_phi = torch.cos(phi), torch.sin(phi)
+    cos_phi, sin_phi = cos(phi), sin(phi)
     alpha_2 = 1.0 / torch.clamp(
         sqr(cos_phi / alpha_u) + sqr(sin_phi / alpha_v), min=1e-20)
     return cos_phi, sin_phi, alpha_2
@@ -48,8 +59,8 @@ def sample_ggx(xi0, xi1, alpha_u, alpha_v):
     cos_phi, sin_phi, alpha_2 = _anisotropic_phi(xi1, alpha_u, alpha_v)
     xi0 = torch.clamp(xi0, max=1.0 - 1e-6)
     tan_theta_2 = alpha_2 * xi0 / (1.0 - xi0)
-    cos_theta = 1.0 / torch.sqrt(1.0 + tan_theta_2)
-    sin_theta = torch.sqrt(torch.clamp(1.0 - sqr(cos_theta), min=0.0))
+    cos_theta = 1.0 / sqrt(1.0 + tan_theta_2)
+    sin_theta = sqrt(torch.clamp(1.0 - sqr(cos_theta), min=0.0))
     h = torch.stack([sin_theta * cos_phi, sin_theta * sin_phi, cos_theta],
                     dim=-1)
     pdf = 1.0 / torch.clamp(
@@ -74,7 +85,7 @@ def smith_g1(alpha_u, alpha_v, v_local, h_local):
     n_dot_v = v_local[..., 2]
     xy_alpha_2 = sqr(alpha_u * v_local[..., 0]) + sqr(alpha_v * v_local[..., 1])
     tan_theta_2 = xy_alpha_2 / torch.clamp(sqr(n_dot_v), min=1e-20)
-    g = 2.0 / (1.0 + torch.sqrt(1.0 + tan_theta_2))
+    g = 2.0 / (1.0 + sqrt(1.0 + tan_theta_2))
     return torch.where(n_dot_v * h_local[..., 2] > 0.0, g, torch.zeros_like(g))
 
 
@@ -83,9 +94,9 @@ def sample_beckmann(xi0, xi1, alpha_u, alpha_v):
     (archive ndfs/beckmann.cpp:8-30).  Returns (h_local, D*cos pdf)."""
     cos_phi, sin_phi, alpha_2 = _anisotropic_phi(xi1, alpha_u, alpha_v)
     xi0 = torch.clamp(xi0, max=1.0 - 1e-6)
-    cos_theta = 1.0 / torch.sqrt(
-        torch.clamp(1.0 - alpha_2 * torch.log1p(-xi0), min=1e-12))
-    sin_theta = torch.sqrt(torch.clamp(1.0 - sqr(cos_theta), min=0.0))
+    cos_theta = 1.0 / sqrt(
+        torch.clamp(1.0 - alpha_2 * log1p(-xi0), min=1e-12))
+    sin_theta = sqrt(torch.clamp(1.0 - sqr(cos_theta), min=0.0))
     h = torch.stack([sin_theta * cos_phi, sin_theta * sin_phi, cos_theta],
                     dim=-1)
     pdf = (1.0 - xi0) / torch.clamp(
@@ -101,7 +112,7 @@ def pdf_beckmann(alpha_u, alpha_v, h_local):
     cos_theta_3 = cos_theta_2 * torch.clamp(cos_theta, min=1e-12)
     expo = (sqr(h_local[..., 0] / alpha_u)
             + sqr(h_local[..., 1] / alpha_v)) / cos_theta_2
-    pdf = torch.exp(-expo) / torch.clamp(
+    pdf = exp(-expo) / torch.clamp(
         PI * alpha_u * alpha_v * cos_theta_3, min=1e-20)
     return torch.where(cos_theta > 0.0, pdf, torch.zeros_like(pdf))
 
@@ -112,7 +123,7 @@ def smith_g1_beckmann(alpha_u, alpha_v, v_local, h_local):
     n_dot_v = v_local[..., 2]
     xy_alpha_2 = sqr(alpha_u * v_local[..., 0]) + sqr(alpha_v * v_local[..., 1])
     tan_theta_2 = xy_alpha_2 / torch.clamp(sqr(n_dot_v), min=1e-20)
-    a = 1.0 / torch.sqrt(torch.clamp(tan_theta_2, min=1e-20))
+    a = 1.0 / sqrt(torch.clamp(tan_theta_2, min=1e-20))
     a2 = sqr(a)
     g = torch.where(a < 1.6,
                     (3.535 * a + 2.181 * a2) / (1.0 + 2.276 * a + 2.577 * a2),
@@ -125,7 +136,7 @@ def fresnel_dielectric(cos_i, eta_inv):
     math/sample.cpp FresnelDielectric): `cos_i` >= 0 against the
     interface normal, `eta_inv` = n_i / n_t."""
     sin_t_2 = sqr(eta_inv) * (1.0 - sqr(cos_i))
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin_t_2, min=0.0))
+    cos_t = sqrt(torch.clamp(1.0 - sin_t_2, min=0.0))
     r_s = (eta_inv * cos_i - cos_t) / torch.clamp(eta_inv * cos_i + cos_t,
                                                   min=1e-12)
     r_p = (cos_i - eta_inv * cos_t) / torch.clamp(cos_i + eta_inv * cos_t,

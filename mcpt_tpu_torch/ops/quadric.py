@@ -32,10 +32,15 @@ import torch
 from mcpt_tpu_torch.ops.math import (
     EPSILON_DISTANCE,
     TWO_PI,
+    arccos,
+    atan2,
+    cos,
     cross,
     dot,
     mat_vec,
     normalize,
+    sin,
+    sqrt,
 )
 
 KIND_SPHERE = 0
@@ -102,7 +107,7 @@ def _solve_quadratic(a, b, c):
     t_near, t_far), finite on every lane."""
     disc = b * b - 4.0 * a * c
     ok = (disc >= 0.0) & (torch.abs(a) > 1e-20)
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = sqrt(torch.clamp(disc, min=0.0))
     s = torch.where(b >= 0.0, torch.ones_like(b), -torch.ones_like(b))
     q = -0.5 * (b + s * sq)
     q = torch.where(torch.abs(q) > 1e-30, q, torch.full_like(q, 1e-30))
@@ -152,7 +157,7 @@ def _row_candidate(kind, to_local, to_world, params, o, d):
 
     t_l = torch.where(ok, t_l, torch.ones_like(t_l))
     pw = _xform_point(to_world, ol + t_l[..., None] * dl)
-    t_w = torch.sqrt(torch.clamp(dot(pw - o, pw - o), min=1e-30))
+    t_w = sqrt(torch.clamp(dot(pw - o, pw - o), min=1e-30))
     return ok, t_w, inside
 
 
@@ -208,7 +213,7 @@ def intersect_quadrics(q: QuadricTables, kinds, o, d, t_min, t_max,
 
 
 def _wrap_phi(y, x):
-    phi = torch.atan2(y, x)
+    phi = atan2(y, x)
     return torch.where(phi < 0.0, phi + TWO_PI, phi)
 
 
@@ -234,17 +239,17 @@ def quadric_attrs(q: QuadricTables, kinds, idx, pos_w):
         r = q.params[i, 0]
         if kind == KIND_SPHERE:
             nl = normalize(pl)
-            theta = torch.arccos(torch.clamp(nl[..., 1], -1.0, 1.0))
+            theta = arccos(torch.clamp(nl[..., 1], -1.0, 1.0))
             phi = _wrap_phi(nl[..., 2], nl[..., 0])
             uv_i = torch.stack([phi / TWO_PI, theta / np.pi], -1)
             # dP/dtheta of P = r (sin t cos p, cos t, sin t sin p)
-            sin_t, cos_t = torch.sin(theta), torch.cos(theta)
-            cos_p, sin_p = torch.cos(phi), torch.sin(phi)
+            sin_t, cos_t = sin(theta), cos(theta)
+            cos_p, sin_p = cos(phi), sin(phi)
             bit_l = torch.stack([cos_t * cos_p, -sin_t, cos_t * sin_p], -1)
             n_w = normalize(mat_vec(q.nmat[i], nl))
             b_w = normalize(_xform_dir(q.to_world[i], bit_l))
         elif kind == KIND_DISK:
-            rad = torch.sqrt(torch.clamp(dot(pl[..., :2], pl[..., :2]),
+            rad = sqrt(torch.clamp(dot(pl[..., :2], pl[..., :2]),
                                          min=1e-30))
             phi = _wrap_phi(pl[..., 1], pl[..., 0])
             uv_i = torch.stack([rad / 0.5, phi / TWO_PI], -1)
@@ -286,17 +291,17 @@ def sample_quadric_row(q: QuadricTables, i: int, kind: int, xi0, xi1):
     r = q.params[i, 0]
     if kind == KIND_SPHERE:
         cos_t = 1.0 - 2.0 * xi0
-        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        sin_t = sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
         phi = TWO_PI * xi1
-        nl = torch.stack([sin_t * torch.cos(phi), cos_t,
-                          sin_t * torch.sin(phi)], -1)
+        nl = torch.stack([sin_t * cos(phi), cos_t,
+                          sin_t * sin(phi)], -1)
         pl = r * nl
         uv = torch.stack(
-            [xi1, torch.arccos(torch.clamp(cos_t, -1, 1)) / np.pi], -1)
+            [xi1, arccos(torch.clamp(cos_t, -1, 1)) / np.pi], -1)
     elif kind == KIND_DISK:
-        rr = torch.sqrt(torch.clamp(xi0, min=0.0))
+        rr = sqrt(torch.clamp(xi0, min=0.0))
         phi = TWO_PI * xi1
-        pl = torch.stack([0.5 * rr * torch.cos(phi), 0.5 * rr * torch.sin(phi),
+        pl = torch.stack([0.5 * rr * cos(phi), 0.5 * rr * sin(phi),
                           torch.zeros_like(rr)], -1)
         uv = torch.stack([rr, xi1], -1)
         # the disk's normal is constant: its frame transform once
@@ -308,7 +313,7 @@ def sample_quadric_row(q: QuadricTables, i: int, kind: int, xi0, xi1):
         phi = TWO_PI * xi0
         z = xi1 * length
         nl = torch.stack(
-            [torch.cos(phi), torch.sin(phi), torch.zeros_like(phi)], -1)
+            [cos(phi), sin(phi), torch.zeros_like(phi)], -1)
         pl = torch.stack([r * nl[..., 0], r * nl[..., 1], z], -1)
         uv = torch.stack([xi0, xi1], -1)
 

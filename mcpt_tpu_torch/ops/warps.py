@@ -6,16 +6,16 @@ from __future__ import annotations
 
 import torch
 
-from mcpt_tpu_torch.ops.math import INV_PI, TWO_PI, sqr
+from mcpt_tpu_torch.ops.math import INV_PI, TWO_PI, cos, sin, sqr, sqrt
 
 
 def sample_cone_uniform(cos_cutoff, xi0, xi1):
     """Uniform direction in a cone around +z (math.cpp:15-22)."""
     cos_theta = 1.0 - (1.0 - cos_cutoff) * xi0
     phi = TWO_PI * xi1
-    sin_theta = torch.sqrt(torch.clamp(1.0 - sqr(cos_theta), min=0.0))
+    sin_theta = sqrt(torch.clamp(1.0 - sqr(cos_theta), min=0.0))
     return torch.stack(
-        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta],
+        [sin_theta * cos(phi), sin_theta * sin(phi), cos_theta],
         dim=-1,
     )
 
@@ -28,11 +28,11 @@ def sample_sphere_uniform(xi0, xi1):
 def sample_hemisphere_cosine(xi0, xi1):
     """Cosine-weighted hemisphere sample around +z (math.cpp:31-38).
     Returns (direction, pdf) with pdf = cos_theta / pi."""
-    cos_theta = torch.sqrt(xi0)
+    cos_theta = sqrt(xi0)
     phi = TWO_PI * xi1
-    sin_theta = torch.sqrt(torch.clamp(1.0 - sqr(cos_theta), min=0.0))
+    sin_theta = sqrt(torch.clamp(1.0 - sqr(cos_theta), min=0.0))
     vec = torch.stack(
-        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta],
+        [sin_theta * cos(phi), sin_theta * sin(phi), cos_theta],
         dim=-1,
     )
     return vec, INV_PI * cos_theta
@@ -41,7 +41,7 @@ def sample_hemisphere_cosine(xi0, xi1):
 def sample_triangle_uniform(xi0, xi1):
     """sqrt-warp uniform barycentrics (csrt triangle.cpp:150-160).
     Returns (w, u, v), the weights of vertices (0, 1, 2)."""
-    temp = torch.sqrt(torch.clamp(1.0 - xi0, min=0.0))
+    temp = sqrt(torch.clamp(1.0 - xi0, min=0.0))
     u = 1.0 - temp
     v = temp * xi1
     w = 1.0 - u - v

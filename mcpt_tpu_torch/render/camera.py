@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mcpt_tpu_torch.ops.math import to_radians
+from mcpt_tpu_torch.ops.math import sqrt, to_radians
 from mcpt_tpu_torch.scene.ir import CameraInfo
 
 
@@ -71,7 +71,7 @@ def generate_rays(camera: Camera, pixel_idx, u, v):
     )
     # the length term by term in one order: the same bits on the card
     # and the CPU, which a library norm does not promise
-    d = d / torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+    d = d / sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
                        + d[:, 2] * d[:, 2])[:, None]
     o = camera.eye.expand_as(d)
     return o, d

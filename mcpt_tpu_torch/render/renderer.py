@@ -1,11 +1,20 @@
-"""Renderer orchestration (counterpart of mcpt_tpu/render/renderer.py,
-the regeneration engine; csrt src/renderer/renderer.cpp Draw path).
+"""Renderer orchestration (counterpart of mcpt_tpu/render/renderer.py;
+csrt src/renderer/renderer.cpp Draw path).
 
-The film renders in pixel tiles; each tile runs the path integrator's
-regen wavefront (integrators/path.py::shade_regen) once per spp chunk,
-and the chunks' films accumulate on the device.  Every pixel's samples
-are a pure function of (pixel, frame), so the image does not depend on
-the tile or chunk sizes.
+The film renders in pixel tiles, each tile once per spp chunk, and the
+chunks' films accumulate on the device.  Two engines, as in the
+reference:
+
+* `regen` (the default for the path and volpath integrators):
+  `render_tile_regen`, the integrator's fused spp x depth wavefront
+  (shade_regen), every lane owning all of its pixel's samples;
+* `chunked`: `render_tile` -> `render_pixels`, one camera sample of every
+  pixel at a time through the integrator's `shade`, the seed carried
+  from sample to sample.
+
+Every pixel's samples are a pure function of (pixel, frame), so the image
+does not depend on the tile or chunk sizes; the two engines seed their
+samples differently, so their images agree statistically.
 """
 
 from __future__ import annotations
@@ -16,9 +25,63 @@ import numpy as np
 import torch
 
 from mcpt_tpu_torch.integrators import path as path_integrator
-from mcpt_tpu_torch.render.camera import make_camera
+from mcpt_tpu_torch.integrators import volpath as volpath_integrator
+from mcpt_tpu_torch.ops import rng
+from mcpt_tpu_torch.render.camera import generate_rays, make_camera
 from mcpt_tpu_torch.scene.compile import compile_scene
 from mcpt_tpu_torch.scene.ir import RendererConfig
+
+
+def _integrator(integ):
+    return volpath_integrator if integ.itype == "volpath" else path_integrator
+
+
+def render_pixels(scene, camera, integ, pixel_idx, spp: int, frame_base=0,
+                  differentiable: bool = False, spp_total: int | None = None,
+                  sample_offset=0):
+    """The chunked engine (mcpt_tpu/render/renderer.py:34-83): the mean of
+    `spp` samples for a batch of linear pixel indices.  Sample s uses
+    jitter u = (sample_offset + s) / spp_total, v = VdC2(base + s + 1)
+    with base = frame_base + sample_offset, and one seed per pixel,
+    Tea(pixel, base), carried from sample to sample; each sample is
+    clamped (renderer.cpp:77-79) before it is summed."""
+    if differentiable:
+        raise NotImplementedError(
+            "the differentiable estimator: ROADMAP item 18")
+    spp_total = spp if spp_total is None else spp_total
+    base = (int(frame_base) + int(sample_offset)) & 0xFFFFFFFF
+    seed = rng.pixel_seed(pixel_idx, base)
+    acc = torch.zeros((pixel_idx.shape[0], 3), dtype=torch.float32,
+                      device=pixel_idx.device)
+    shade = _integrator(integ).shade
+    for s in range(spp):
+        # the jitter in f32, as the reference computes it
+        u = float(np.float32(sample_offset + s) / np.float32(spp_total))
+        v = float(rng.van_der_corput_base2(base + s + 1))
+        o, d = generate_rays(camera, pixel_idx, u, v)
+        radiance, seed = shade(scene, integ, o, d, seed)
+        if integ.sample_clamp > 0:
+            radiance = torch.clamp(radiance, max=integ.sample_clamp)
+        acc = acc + radiance
+    return acc / spp
+
+
+def render_tile(scene, camera, integ, pixel_idx, spp: int, frame_base=0,
+                spp_total=None, sample_offset=0):
+    """One tile-chunk by the chunked engine."""
+    return render_pixels(scene, camera, integ, pixel_idx, spp, frame_base,
+                         spp_total=spp_total, sample_offset=sample_offset)
+
+
+def render_tile_regen(scene, camera, integ, pixel_idx, spp: int, frame_base=0,
+                      spp_total=None, sample_offset=0):
+    """One tile-chunk by the regen engine: volpath's shade_regen for the
+    volpath integrator, path's otherwise
+    (mcpt_tpu/render/renderer.py:95-108)."""
+    film, _ = _integrator(integ).shade_regen(
+        scene, integ, camera, pixel_idx, spp, frame_base=frame_base,
+        spp_total=spp_total, sample_offset=sample_offset)
+    return film
 
 
 class Renderer:
@@ -39,19 +102,22 @@ class Renderer:
         self.integrator = config.integrator
 
     def render(self, spp: int | None = None, tile: int = 1 << 16,
-               frame_base: int = 0, spp_chunk: int = 8) -> np.ndarray:
+               frame_base: int = 0, spp_chunk: int = 8,
+               engine: str | None = None) -> np.ndarray:
         """Render the full frame; returns linear-light [H, W, 3] float32.
 
         Work goes in (tile, spp_chunk) pieces: chunk s of a tile renders
         samples [offset, offset + s) of `spp` (u = (offset + k) / spp,
-        the reference's stratified jitter).  Only the regen engine is
-        ported: MCPT_ENGINE=chunked (the reference's per-sample wavefront)
-        raises."""
-        engine = os.environ.get("MCPT_ENGINE", "regen")
-        if engine != "regen":
-            raise NotImplementedError(
-                f"MCPT_ENGINE={engine}: the chunked per-sample engine "
-                "(render_tile + shade) is ROADMAP item 17")
+        the reference's stratified jitter).  engine: 'regen' (the default
+        for path and volpath) or 'chunked' (the default for BDPT, which
+        the port does not render yet); MCPT_ENGINE overrides the
+        default, and any other name takes the chunked engine, as in the
+        reference."""
+        if engine is None:
+            engine = os.environ.get(
+                "MCPT_ENGINE",
+                "regen" if self.integrator.itype != "bdpt" else "chunked")
+        tile_fn = render_tile_regen if engine == "regen" else render_tile
         cam = self.camera
         n_pix = cam.width * cam.height
         spp = spp or cam.spp
@@ -67,10 +133,9 @@ class Renderer:
             acc = None
             s_done = 0
             for s in chunks:
-                film, _ = path_integrator.shade_regen(
-                    self.scene, self.integrator, cam, idx, s,
-                    frame_base=frame_base, spp_total=spp, sample_offset=s_done,
-                )
+                film = tile_fn(self.scene, cam, self.integrator, idx, s,
+                               frame_base=frame_base, spp_total=spp,
+                               sample_offset=s_done)
                 contrib = film * float(s)
                 acc = contrib if acc is None else acc + contrib
                 s_done += s

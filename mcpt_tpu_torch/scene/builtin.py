@@ -30,6 +30,15 @@ Two scenes without the box drive the emitters, textures and quadrics:
   directional light, a sun with its bitmap, a constant sky; 14
   triangles, the dense sweep and the unbatched body's alpha walk.
 
+`bump_and_bead` holds the two features that turn rounding into pixels at
+the scale where card and CPU renders first parted: an emissive sphere of
+radius 0.02 and a bump map of ripple height.
+
+`volumetric_caustic` is a volumetric-caustic-class scene for the volpath
+integrator: a glass sphere in a box of fog (a null-boundary cube holding
+a homogeneous medium), lit by a small area light above it, over a
+diffuse floor; isotropic or Henyey-Greenstein scattering.
+
 Every texture and the envmap are made in code from fixed formulas and
 seeds, so nothing is read from disk.
 """
@@ -47,6 +56,7 @@ from mcpt_tpu_torch.scene.ir import (
     EmitterType,
     InstanceInfo,
     IntegratorInfo,
+    MediumInfo,
     MeshData,
     RendererConfig,
 )
@@ -453,4 +463,108 @@ def lights_showcase(res=512, spp=16, depth_max=8, depth_rr=5):
         camera=cam,
         integrator=IntegratorInfo(depth_max=depth_max, depth_rr=depth_rr),
         textures=tex, bsdfs=bsdfs, instances=instances, emitters=emitters,
+    )
+
+
+#: the bump height of `bump_and_bead`: bitmap values 0.025 to 1.025, a
+#: bitmap's full range, 25 times the envmap scene's (whose values stay
+#: near 0 so that the forward difference at 1e-4, which scales a
+#: length's rounding by 1e4, rounds finely)
+RIPPLE_HEIGHT = 0.5
+
+
+def bump_and_bead(res=512, spp=16, depth_max=8, depth_rr=5,
+                  amplitude=RIPPLE_HEIGHT):
+    """A test scene of the two features that amplify rounding (not a
+    user's scene): a diffuse cube with a 128 x 128 ripple bump map of
+    `amplitude` (0.01 above the floor), and an emissive sphere of radius
+    0.02 (one emissive CDF cell, radiance 2000) beside it, whose shadow
+    rays toward points near its silhouette meet the sphere itself at a
+    root whose rounding grows as 1/r; a diffuse floor and a dim constant
+    sky.  14 triangles and one quadric row: the dense sweep and the
+    unbatched regen body."""
+    tex = TextureBuilder()
+    bsdfs = [
+        BsdfInfo(btype=BsdfType.DIFFUSE,
+                 id_diffuse_reflectance=tex.add_constant([0.6, 0.62, 0.65]),
+                 id_bump_map=tex.add_bitmap(_ripple_bump(amplitude=amplitude))),
+        BsdfInfo(btype=BsdfType.DIFFUSE,
+                 id_diffuse_reflectance=tex.add_constant([0.7, 0.68, 0.64])),
+        BsdfInfo(btype=BsdfType.AREA_LIGHT,
+                 id_radiance=tex.add_constant([2000.0, 1800.0, 1500.0])),
+    ]
+    instances = [
+        InstanceInfo(shape="cube", id_bsdf=0,
+                     to_world=_xform(scale=(0.45,) * 3, rot_y=30,
+                                     t=(0.0, 0.46, 0.0))),
+        InstanceInfo(shape="rectangle", id_bsdf=1,
+                     to_world=_xform(scale=(4.0, 4.0, 1.0), rot_x=-90)),
+        InstanceInfo(shape="sphere", id_bsdf=2, radius=0.02,
+                     center=np.array([0.75, 1.05, 0.55], np.float32)),
+    ]
+    cam = CameraInfo(width=res, height=res, spp=spp, fov_x=40.0,
+                     eye=np.array([0.4, 1.6, 3.2], np.float32),
+                     look_at=np.array([0.1, 0.45, 0.0], np.float32))
+    return RendererConfig(
+        camera=cam,
+        integrator=IntegratorInfo(depth_max=depth_max, depth_rr=depth_rr),
+        textures=tex, bsdfs=bsdfs, instances=instances,
+        emitters=[EmitterInfo(etype=EmitterType.CONSTANT,
+                              radiance=np.array([0.1, 0.12, 0.15],
+                                                np.float32))],
+    )
+
+
+#: the fog of `volumetric_caustic`: sigma_t 0.4 a unit, so an optical
+#: depth of 1.2 across the 3-unit box (both branches of the free flight
+#: carry weight), albedo 0.875
+FOG_SIGMA_S = 0.35
+FOG_SIGMA_A = 0.05
+
+
+def volumetric_caustic(res=512, spp=16, depth_max=16, depth_rr=5,
+                       phase="isotropic", g=0.0):
+    """A volumetric-caustic-class scene, the layout of the reference
+    suite's volumetric-caustic/scene_v0.6.xml built in code: a smooth
+    dielectric sphere (eta 1.5, an analytic quadric of radius 0.5, the fog
+    outside it) in a 3 x 2 x 3 box of fog (a null-boundary cube, 12
+    triangles, holding a homogeneous medium of `phase` scattering, HG
+    asymmetry `g`), lit by a 0.6 x 0.6 area light 1 unit above the box,
+    facing the sphere, so that its shadow rays cross the box's null faces;
+    a diffuse floor 0.05 below the box's bottom face (no coplanar faces).
+    The camera stands outside the fog.  16 triangles and one quadric row:
+    the dense sweep (K1) and the volpath regen body; the volpath
+    integrator at depth 16, as the reference suite times this scene."""
+    tex = TextureBuilder()
+    bsdfs = [
+        BsdfInfo(btype=BsdfType.DIFFUSE,
+                 id_diffuse_reflectance=tex.add_constant([0.7, 0.7, 0.68])),
+        BsdfInfo(btype=BsdfType.DIELECTRIC, eta=1.5),
+        BsdfInfo(btype=BsdfType.AREA_LIGHT,
+                 id_radiance=tex.add_constant([30.0, 27.0, 22.0])),
+    ]
+    fog = MediumInfo(sigma_a=np.full(3, FOG_SIGMA_A, np.float32),
+                     sigma_s=np.full(3, FOG_SIGMA_S, np.float32),
+                     phase=phase, g=np.full(3, g, np.float32))
+    instances = [
+        InstanceInfo(shape="rectangle", id_bsdf=0,
+                     to_world=_xform(scale=(3.0, 3.0, 1.0), rot_x=-90)),
+        InstanceInfo(shape="cube", id_bsdf=-1, id_medium_int=0,
+                     to_world=_xform(scale=(1.5, 1.0, 1.5),
+                                     t=(0.0, 1.05, 0.0))),
+        InstanceInfo(shape="sphere", id_bsdf=1, radius=0.5,
+                     center=np.array([0.0, 1.0, 0.0], np.float32),
+                     id_medium_ext=0),
+        InstanceInfo(shape="rectangle", id_bsdf=2,
+                     to_world=_xform(scale=(0.3, 0.3, 1.0), rot_x=90,
+                                     t=(0.0, 3.05, 0.0))),
+    ]
+    cam = CameraInfo(width=res, height=res, spp=spp, fov_x=45.0,
+                     eye=np.array([0.0, 1.6, 5.0], np.float32),
+                     look_at=np.array([0.0, 0.9, 0.0], np.float32))
+    return RendererConfig(
+        camera=cam,
+        integrator=IntegratorInfo(itype="volpath", depth_max=depth_max,
+                                  depth_rr=depth_rr),
+        textures=tex, bsdfs=bsdfs, media=[fog], instances=instances,
     )

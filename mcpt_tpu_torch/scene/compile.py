@@ -4,7 +4,9 @@ triangle geometry and the analytic quadrics (sphere, disk, cylinder),
 every BSDF family with every texture kind, the Kulla-Conty tables where
 a conductor or a dielectric needs them, the emissive-triangle table for
 NEE, the analytic emitters and the escape emitter (an envmap with its
-alias table, or a constant sky).
+alias table, or a constant sky), the participating media and each
+instance's interior and exterior medium; null-boundary (medium shell)
+instances become rows that never block shadow rays.
 
 NEE samples one global CDF over emissive triangles with
 P(tri) = (w_L / sum_w) * (area_tri / area_L), so pdf_area = P(light) /
@@ -32,6 +34,7 @@ from mcpt_tpu_torch.models.emitter import (
     build_envmap,
     empty_envmap,
 )
+from mcpt_tpu_torch.models.medium import MediumTables, build_medium_tables
 from mcpt_tpu_torch.models.texture import TEX_NONE, TextureTables
 from mcpt_tpu_torch.ops.march_sweep import super_boxes
 from mcpt_tpu_torch.ops.quadric import (
@@ -80,6 +83,9 @@ class SceneData:
     em: EmissiveTris
     emitters: EmitterTables           # analytic lights, one row each
     env: EnvMapData                   # the envmap (a placeholder if none)
+    media: MediumTables               # participating media, one row each
+    map_inst_medium_int: torch.Tensor  # [I] int32 (-1 = vacuum)
+    map_inst_medium_ext: torch.Tensor  # [I] int32
     quad: QuadricTables               # sphere / disk / cylinder rows
     #: Kulla-Conty E(mu, alpha) [128, 128] and E_avg(alpha) [128]: the
     #: tables where a conductor or a dielectric is present, else zeros
@@ -107,19 +113,10 @@ class SceneData:
 
 def _check_slice(config: RendererConfig):
     """Refuse what the port does not render yet."""
-    if config.media or any(
-        i.id_medium_int >= 0 or i.id_medium_ext >= 0 for i in config.instances
-    ):
-        raise NotImplementedError("participating media: ROADMAP item 16")
-    if config.integrator.itype != "path":
+    if config.integrator.itype not in ("path", "volpath"):
         raise NotImplementedError(
-            f"integrator '{config.integrator.itype}': ROADMAP items 16-17"
+            f"integrator '{config.integrator.itype}': ROADMAP item 17"
         )
-    for info in config.instances:
-        if info.id_bsdf < 0:
-            raise NotImplementedError(
-                "null-boundary (medium shell) instances: ROADMAP item 16"
-            )
 
 
 def _quadric_row(info):
@@ -257,6 +254,10 @@ def compile_scene(config: RendererConfig, device="cuda") -> SceneData:
     # --- instance -> bsdf map (csrt instance.hpp:40-51 binding)
     n_inst = len(config.instances)
     map_inst_bsdf = np.array([i.id_bsdf for i in config.instances], np.int32)
+    map_med_int = np.array(
+        [i.id_medium_int for i in config.instances] or [-1], np.int32)
+    map_med_ext = np.array(
+        [i.id_medium_ext for i in config.instances] or [-1], np.int32)
 
     # --- area lights: weight CDF over lights x area CDF within a light
     # (csrt renderer.cpp:272-304)
@@ -347,6 +348,9 @@ def compile_scene(config: RendererConfig, device="cuda") -> SceneData:
         em=em,
         emitters=build_emitter_tables(config.emitters, device),
         env=env,
+        media=build_medium_tables(config.media, device),
+        map_inst_medium_int=dev(map_med_int),
+        map_inst_medium_ext=dev(map_med_ext),
         quad=build_quadric_tables(quad_rows, device),
         brdf_avg=brdf_avg,
         albedo_avg=albedo_avg,
@@ -382,10 +386,10 @@ def scene_from_arrays(arrays: dict, device="cuda", quad_kinds=(),
                       em_quad_cells=()) -> SceneData:
     """SceneData from another SceneData's leaves, handed over as numpy
     arrays under their dotted field names ("geom.p0", "em.cdf",
-    "map_inst_bsdf", ...) — how the tests carry the reference's compiled
-    scene across.  Keys the port does not use are ignored;
-    `geom.packed_tris` may come in the reference's [leaves, leaf, 12]
-    layout, and the geometry fields the reference does not have follow
+    "map_inst_bsdf", "media.sigma_t", ...) — how the tests carry the
+    reference's compiled scene across.  Keys the port does not use are
+    ignored; `geom.packed_tris` may come in the reference's
+    [leaves, leaf, 12] layout, and the geometry fields the reference does not have follow
     from those it has: march_prim from march_tris' prim-id channel, the
     scene bounds from the BVH root (geom.node_min[0], geom.node_max[0]),
     the super-chunk unions from the chunk boxes.
@@ -458,6 +462,9 @@ def scene_from_arrays(arrays: dict, device="cuda", quad_kinds=(),
         emitters=group(EmitterTables, "emitters"),
         env=group(EnvMapData, "env", width=env_shape[0],
                   height=env_shape[1]),
+        media=group(MediumTables, "media"),
+        map_inst_medium_int=get("map_inst_medium_int"),
+        map_inst_medium_ext=get("map_inst_medium_ext"),
         quad=group(QuadricTables, "quad"),
         brdf_avg=get("brdf_avg"),
         albedo_avg=get("albedo_avg"),

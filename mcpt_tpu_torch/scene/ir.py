@@ -3,8 +3,7 @@ contract between scene construction and `compile_scene`, as host-side
 dataclasses holding numpy — never tensors.
 
 A copy, field for field, of the reference classes the port renders, so
-one RendererConfig converts into the other.  `media` stays in
-RendererConfig; compile_scene refuses it until its slice lands.
+one RendererConfig converts into the other.
 """
 
 from __future__ import annotations
@@ -111,6 +110,21 @@ class BsdfInfo:
     # clear-coated conductor (archive clear_coated_conductor.cpp)
     clear_coat: float = 0.0
     id_coat_roughness: int = -1
+
+
+@dataclasses.dataclass
+class MediumInfo:
+    mtype: str = "homogeneous"
+    sigma_a: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(3, np.float32)
+    )
+    sigma_s: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(3, np.float32)
+    )
+    phase: str = "isotropic"          # "isotropic" | "hg"
+    g: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(3, np.float32)
+    )
 
 
 @dataclasses.dataclass

@@ -1,18 +1,20 @@
 """Where one frame of the main path spends its time on the card.
 
     python -m mcpt_tpu_torch.tools.profile_frame [--res 512] [--spp 16]
-        [--scene cornell|sphere|march|pairs|materials|envmap|lights]
+        [--scene cornell|sphere|march|pairs|materials|envmap|lights|
+                 volcaustic]
         [--frames 1]
 
 Renders a built-in scene (scene/builtin.py: the Cornell box, the box with
 the 16200-triangle sphere, one of the two mesh scenes past
 DENSE_MAX_PRIMS, one per large-scene route, the march scene in every
-BSDF family, the envmap scene or the lights scene) once to warm up and
+BSDF family, the envmap scene, the lights scene or the volumetric-caustic
+scene, at its own depth: 16 for volcaustic, else 8) once to warm up and
 times
 `--frames` frames with the host clock (their median is the frame wall).
 Then it records one tile-chunk of that frame (the first 64k-pixel tile,
-the first spp chunk: one shade_regen call, 1/8 of a 512x512 16-spp
-frame) under torch.profiler
+the first spp chunk: one shade_regen call of the scene's integrator,
+1/8 of a 512x512 16-spp frame) under torch.profiler
 (CPU + CUDA activity) and prints the device's busy time, its idle share
 of the same tile-chunk's unprofiled wall time, the number of device
 activities (kernels, copies, sets) and the kernels with the most device
@@ -43,7 +45,8 @@ def main(argv=None) -> int:
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--scene", default="cornell",
                     choices=("cornell", "sphere", "march", "pairs",
-                             "materials", "envmap", "lights"))
+                             "materials", "envmap", "lights",
+                             "volcaustic"))
     ap.add_argument("--frames", type=int, default=1,
                     help="frames timed after the warm-up (median reported)")
     args = ap.parse_args(argv)
@@ -64,7 +67,8 @@ def main(argv=None) -> int:
             "pairs": builtin.cornell_mesh_pairs,
             "materials": builtin.cornell_mesh_materials,
             "envmap": builtin.envmap_matpreview,
-            "lights": builtin.lights_showcase}[args.scene]
+            "lights": builtin.lights_showcase,
+            "volcaustic": builtin.volumetric_caustic}[args.scene]
     cfg = make(res=args.res, spp=args.spp)
     r = Renderer(cfg, device="cuda")
 
@@ -85,7 +89,8 @@ def main(argv=None) -> int:
         + ", ".join(f"{w:.3f}" for w in walls) + ")" if len(walls) > 1 else ""),
         flush=True)
 
-    from mcpt_tpu_torch.integrators.path import _use_batched_trace, shade_regen
+    from mcpt_tpu_torch.integrators.path import _use_batched_trace
+    from mcpt_tpu_torch.render.renderer import render_tile_regen
 
     n_pix = args.res * args.res
     tile = min(1 << 16, n_pix)
@@ -93,8 +98,8 @@ def main(argv=None) -> int:
     idx = torch.arange(tile, device="cuda")
 
     def tile_chunk():
-        shade_regen(r.scene, r.integrator, r.camera, idx, chunk,
-                    frame_base=2, spp_total=args.spp)
+        render_tile_regen(r.scene, r.camera, r.integrator, idx, chunk,
+                          frame_base=2, spp_total=args.spp)
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -122,7 +127,8 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     body = "batched" if _use_batched_trace(r.scene) else "unbatched"
     print(f"device {name}; scene {args.scene}, {body} body, frame "
-          f"{args.res}x{args.res} {args.spp}spp d8; profiled one tile-chunk "
+          f"{args.res}x{args.res} {args.spp}spp d{cfg.integrator.depth_max}, "
+          f"{cfg.integrator.itype}; profiled one tile-chunk "
           f"of {tile} pixels x {chunk} spp")
     print(f"tile-chunk wall {chunk_wall:.3f} s ({prof_wall:.3f} s profiled); "
           f"device busy {busy:.3f} s, idle share {1 - busy / chunk_wall:.3f}; "

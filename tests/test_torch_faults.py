@@ -10,7 +10,9 @@ reference on the CPU.
   direct-light Cornell render still agrees with the reference's per pixel
   at tau 0 and 0.05 (the tolerance of tests/test_torch_render.py: rtol
   1e-4, atol 1e-5 on 99% of pixels, the rest being wall seams).
-  MCPT_ENGINE=chunked raises instead of rendering regen.
+  MCPT_ENGINE=chunked, which the port refused until it had the chunked
+  engine, now renders the reference's chunked image, pixel for pixel at
+  the same tolerance.
 
 The reference's Renderer writes its knobs into os.environ for good, so
 every test here restores the environment it found.
@@ -104,8 +106,13 @@ def test_direct_light_streams_match_reference_at_tau(clean_env, tau):
     assert close.mean() >= 0.99
 
 
-def test_chunked_engine_is_refused(clean_env):
+def test_chunked_engine_renders_as_the_reference(clean_env):
     os.environ["MCPT_ENGINE"] = "chunked"
-    r = Renderer(cornell_torch_config(res=4, spp=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        r.render()
+    tcfg = cornell_torch_config(res=16, spp=4, depth_max=2)
+    ref = np.asarray(JaxRenderer(to_jax_config(tcfg)).render(tile=256))
+    got = Renderer(tcfg, device="cpu").render(tile=256)
+    regen = Renderer(tcfg, device="cpu").render(tile=256, engine="regen")
+    assert ref.mean() > 0.05
+    close = np.isclose(got, ref, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert close.mean() >= 0.99
+    assert not np.array_equal(got, regen)  # the engines seed otherwise

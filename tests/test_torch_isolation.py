@@ -8,7 +8,9 @@ a 16x16, 1-spp Cornell box and an 8x8 frame of each mesh scene: one down
 each large-scene route, and the materials scene (every BSDF family, the
 batched body); and an 8x8 frame of the envmap scene (the envmap's alias
 table, bitmap and bump textures, the batched body) and of the lights
-scene (analytic emitters and quadrics, the alpha walk).  A scan of the sources catches an import
+scene (analytic emitters and quadrics, the alpha walk); and an 8x8 frame
+of the volumetric-caustic scene (media, null shells, the volpath
+integrator) by both engines.  A scan of the sources catches an import
 statement of any of them, even one on a path the subprocess does not run.
 """
 
@@ -48,7 +50,7 @@ import chip_smoke
 from mcpt_tpu_torch.render.renderer import Renderer
 from mcpt_tpu_torch.scene.builtin import (
     cornell_box, cornell_mesh_march, cornell_mesh_materials, cornell_mesh_pairs,
-    envmap_matpreview, lights_showcase)
+    envmap_matpreview, lights_showcase, volumetric_caustic)
 from mcpt_tpu_torch.ops.traversal import resolved_strategy
 img = Renderer(cornell_box(res=16, spp=1), device="cpu").render(spp=1)
 assert img.shape == (16, 16, 3) and (img >= 0).all() and img.mean() > 0, img.mean()
@@ -62,6 +64,10 @@ for make in (envmap_matpreview, lights_showcase):
     r = Renderer(make(res=8, spp=1, depth_max=3), device="cpu")
     img = r.render(spp=1)
     assert img.shape == (8, 8, 3) and (img >= 0).all() and img.mean() > 0, make
+r = Renderer(volumetric_caustic(res=8, spp=1, depth_max=4), device="cpu")
+for engine in ("regen", "chunked"):
+    img = r.render(spp=1, engine=engine)
+    assert img.shape == (8, 8, 3) and (img >= 0).all() and img.mean() > 0, engine
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("modules", len(names))

@@ -537,3 +537,52 @@ def test_large_scene_routes_match_plain_march(monkeypatch, route, k):
               f"{route} closest")
     occ = intersect_any(g, o, d, lo, hi)
     assert torch.equal(occ, msw.march_sweep_plain(*plain, any_hit=True).valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["volcaustic shadow",
+                                   "volcaustic past the light"])
+def test_dense_sweep_kernel_across_null_shells(label):
+    """K1 on the volumetric-caustic scene's shadow rays
+    (chip_smoke.volcaustic_inputs): segments to its area light, whose
+    closest hits are the fog box's null faces and whose any-hits skip
+    them (none occludes), and the same rays past the light, where the
+    null rows lie in front of the opaque light's; every output bit-equal
+    to the plain version, closest and any hit."""
+    from chip_smoke import same_hits, volcaustic_inputs
+
+    dev = _cuda()
+    tris, inputs = volcaustic_inputs(dev)
+    o, d, lo, hi = dict((x[0], x[1:]) for x in inputs)[label]
+    hits = {}
+    for any_hit in (False, True):
+        got = ds.dense_sweep(o, d, lo, hi, tris, any_hit=any_hit)
+        torch.cuda.synchronize()
+        ref = ds.dense_sweep_plain(o, d, lo, hi, tris, any_hit=any_hit)
+        _, hits[any_hit], _ = same_hits(got, ref, o, d, tris, lo,
+                                        f"K1 {label} any_hit={any_hit}")
+    assert hits[False] > 0
+    if label == "volcaustic shadow":
+        assert hits[True] == 0  # null shells never occlude
+    else:
+        assert hits[True] == o.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase,engine", [("isotropic", "regen"),
+                                          ("hg", "regen"),
+                                          ("isotropic", "chunked")])
+def test_volpath_render_card_vs_cpu(phase, engine):
+    """A 64x64, 4 spp volpath render of the volumetric-caustic scene
+    (depth 16) on the card against the same render on the CPU, by
+    chip_smoke.card_vs_cpu: >= 99% of pixels within rtol 1e-3, atol 1e-4,
+    channel means within 1e-3 relative."""
+    import functools
+
+    from chip_smoke import card_vs_cpu
+    from mcpt_tpu_torch.scene.builtin import volumetric_caustic
+
+    dev = _cuda()
+    make = functools.partial(volumetric_caustic, phase=phase,
+                             g=-0.5 if phase == "hg" else 0.0)
+    card_vs_cpu(make, dev, f"volcaustic {phase} {engine}", engine=engine)

@@ -160,3 +160,63 @@ def test_safe_rcp_and_intersect_aabb_match():
     np.testing.assert_array_equal(hit.numpy(), np.asarray(ref_hit))
     np.testing.assert_array_equal(t_enter.numpy(), np.asarray(ref_t))
     assert N // 4 < int(hit.sum()) < N
+
+
+# --- device-stable math (fault F6, ROADMAP section 3): the helpers the
+# integrators use in place of torch's float32 transcendental functions and
+# sums, so that the card and the CPU give the same bits
+
+STABLE = ("sqrt", "exp", "log1p", "sin", "cos", "tan", "atan", "arccos")
+
+
+@pytest.mark.parametrize("name", STABLE + ("atan2",))
+def test_stable_functions_are_float64_rounded_to_float32(name):
+    x = T(_rand(N, 11, 0.0 if name in ("sqrt", "arccos") else -3.0,
+                1.0 if name == "arccos" else 3.0))
+    if name == "log1p":
+        x = -x.abs() / 3.0
+    args = (x, T(_rand(N, 12))) if name == "atan2" else (x,)
+    got = getattr(tm, name)(*args)
+    want = getattr(torch, name)(*(a.double() for a in args)).float()
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    # and within an ulp of the reference's float32 function
+    ref = getattr(jnp, name)(*(jnp.asarray(a.numpy()) for a in args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2.4e-7,
+                               atol=1e-7)
+
+
+def test_stable_sqrt_is_ieee():
+    x = _rand(N, 13, 0.0, 100.0)
+    assert np.array_equal(tm.sqrt(T(x)).numpy(), np.sqrt(x))
+
+
+@pytest.mark.parametrize("width", [2, 3])
+def test_dot_sums_in_channel_order(width):
+    a, b = T(_rand((N, width), 14)), T(_rand((N, width), 15))
+    p = a * b
+    want = p[:, 0] + p[:, 1]
+    if width == 3:
+        want = want + p[:, 2]
+    assert torch.equal(tm.dot(a, b), want)
+    assert torch.equal(tm.dot(a, b, keepdim=True)[:, 0], want)
+    assert torch.equal(tm.channel_sum(p), want)
+
+
+def test_per_ray_modules_use_the_stable_math():
+    """No module on the render path calls torch's float32 transcendental
+    functions or sums over a channel axis directly (the Kulla-Conty table
+    build, once per device, is not on it)."""
+    import pathlib
+    import re
+
+    root = pathlib.Path(tm.__file__).resolve().parents[1]
+    pattern = re.compile(r"torch\.(" + "|".join(STABLE + ("atan2", "pow"))
+                         + r")\(|\.sum\(dim=-1|\.mean\(dim=-1")
+    files = [f for sub in ("integrators", "models", "ops", "render")
+             for f in sorted((root / sub).glob("*.py"))
+             if f.name not in ("kulla_conty.py", "math.py")]
+    assert len(files) >= 15
+    hits = [f"{f.name}:{m.group(0)}" for f in files
+            for m in pattern.finditer(f.read_text())]
+    assert not hits, hits

@@ -33,7 +33,8 @@ from mcpt_tpu.scene.compile import compile_scene as jax_compile_scene
 from mcpt_tpu_torch.models.texture import TextureBuilder as TorchTextureBuilder
 from mcpt_tpu_torch.render.camera import generate_rays, make_camera
 from mcpt_tpu_torch.render.renderer import Renderer
-from mcpt_tpu_torch.scene.builtin import _xform, cornell_box, uv_sphere_mesh
+from mcpt_tpu_torch.scene.builtin import (_xform, cornell_box, uv_sphere_mesh,
+                                          volumetric_caustic)
 from mcpt_tpu_torch.scene.compile import compile_scene, scene_from_arrays
 from tests.test_batched_regen import make_mesh_box_scene
 from tests.test_integrator import make_box_scene
@@ -111,14 +112,15 @@ def torch_scene_arrays(scene) -> dict:
     static fields of its tables (texture kinds, column kinds, the envmap's
     size) are not leaves, as in the reference."""
     out = {}
-    for group in ("geom", "tex", "bsdf", "em", "emitters", "env", "quad"):
+    for group in ("geom", "tex", "bsdf", "em", "emitters", "env", "media",
+                  "quad"):
         tables = getattr(scene, group)
         for f in tables._fields:
             value = getattr(tables, f)
             if isinstance(value, torch.Tensor):
                 out[f"{group}.{f}"] = value.cpu().numpy()
-    for f in ("map_inst_bsdf", "map_inst_light_pdf", "brdf_avg",
-              "albedo_avg"):
+    for f in ("map_inst_bsdf", "map_inst_light_pdf", "map_inst_medium_int",
+              "map_inst_medium_ext", "brdf_avg", "albedo_avg"):
         out[f] = getattr(scene, f).cpu().numpy()
     return out
 
@@ -191,6 +193,8 @@ SCENES = {
     "fallback_scene": lambda: to_torch_config(bench.fallback_scene()),
     "cornell_box": cornell_torch_config,
     "materials_box_scene": lambda: to_torch_config(materials_box_scene()),
+    "volumetric_caustic_hg": lambda: volumetric_caustic(res=16, spp=4,
+                                                        phase="hg", g=-0.5),
 }
 
 
@@ -201,7 +205,7 @@ def test_compile_scene_leaves_equal(name):
     ref = jax_scene_arrays(jscene)
     scene = compile_scene(tcfg, device="cpu")
     got = torch_scene_arrays(scene)
-    assert len(got) == 98
+    assert len(got) == 105
     for key, value in got.items():
         want = reference_leaf(ref, key)
         assert value.dtype == want.dtype, key
@@ -215,6 +219,11 @@ def test_compile_scene_leaves_equal(name):
         assert getattr(scene, fact) == getattr(jscene, fact), fact
     if name == "materials_box_scene":
         assert len(scene.present_types) == 8 and scene.brdf_avg.any()
+    if name == "volumetric_caustic_hg":
+        assert not scene.all_opaque and scene.quad_kinds == ((0, True),)
+        assert scene.map_inst_medium_int.tolist() == [-1, 0, -1, -1]
+        assert scene.map_inst_medium_ext.tolist() == [-1, -1, 0, -1]
+        assert scene.media.phase_type.tolist() == [1]
 
 
 def test_scene_from_arrays_rebuilds_the_reference_scene():
@@ -274,19 +283,12 @@ def test_camera_rays_match(res):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("media", "item 16"),
-    ("null_boundary", "item 16"),
-    ("bdpt", "items 16-17"),
-    ("volpath", "items 16-17"),
+    ("bdpt", "item 17"),
     ("mesh_packet_traversal", "item 22"),
 ])
 def test_out_of_slice_scenes_are_refused(monkeypatch, case, item):
     cfg = cornell_torch_config()
-    if case == "media":
-        cfg.media.append(object())
-    elif case == "null_boundary":
-        cfg.instances.append(tir.InstanceInfo(shape="sphere", id_bsdf=-1))
-    elif case in ("bdpt", "volpath"):
+    if case == "bdpt":
         cfg.integrator.itype = case
     else:
         # a mesh past DENSE_MAX_PRIMS renders through the march or the
