@@ -13,7 +13,9 @@ Phases, one short line each:
                  rays, (c) the lights scene's camera, bounce and alpha-walk
                  rays and (d) the volumetric-caustic scene's shadow rays
                  across its null faces; K1's times and roofline bound at
-                 (a), beside its time before the redesign; then every
+                 (a), beside its time before the redesign; K1's autograd
+                 backward (DenseClosestHit, plain torch) timed at (a) and
+                 its gradients held against the CPU's; then every
                  kernel shape (slices per ray x rays per thread) checked on
                  65536 random rays at 64 to 16384 random triangles and on
                  (b)'s bounce rays
@@ -71,8 +73,8 @@ Phases, one short line each:
   render-lights  the emitter and texture test scene (lights_showcase:
                  analytic spheres, a disk and a cylinder, glossy plates, a
                  checkerboard, alpha-masked quads, point, spot, directional,
-                 sun and constant-sky lights) the same way but after a 1-spp
-                 warm-up frame, through K1 and
+                 sun and constant-sky lights) the same way but at
+                 LIGHTS_SPP (8) spp after a 1-spp warm-up frame, through K1 and
                  the unbatched body: every shadow query walks its alpha
                  crossings by closest hits, so K1 makes 1 + 6 x 4 closest-hit
                  launches a wavefront iteration and no any-hit one
@@ -95,14 +97,34 @@ Phases, one short line each:
   device-times   each kernel's device time per launch at its timed input,
                  and K1's shape sweep: every shape's device time at each
                  table size of kernel-K1 (the evidence for shape_for); then
-                 one tile-chunk of render-envmap's, render-lights' and
-                 render-volcaustic's frames under torch.profiler: device
-                 busy time, idle share against the same tile-chunk
-                 unprofiled, device activities, K1 launches
+                 one tile-chunk of render-envmap's, render-lights' (at
+                 LIGHTS_PROFILE_SPP, 2 spp) and render-volcaustic's frames
+                 under torch.profiler: device busy time, idle share against
+                 the same tile-chunk unprofiled, device activities, K1
+                 launches
+  render-bdpt    the glass-sphere caustic without fog (bdpt_caustic) by
+                 BDPT through the chunked engine, 512x512, 8 spp, depth 8
+                 after a 1-spp warm-up frame: K1 alone, exactly 11 closest
+                 and 28 any-hit launches a sample-tile; then the 64x64
+                 card render against the CPU's
+  grad           (a) make_train_step on the envmap scene (the march route,
+                 detached) at 512x512, 4 spp, families textures and bsdf,
+                 in 65536-pixel pieces, against a target rendered at other
+                 parameters: wall, peak device memory, each gradient's norm
+                 (finite; the atlas's, reflectivity's and edge tint's
+                 nonzero); (b) the train step's loss
+                 and gradients on the card against the CPU's at 64x64, 2
+                 spp: the volumetric caustic's media and the caustic's
+                 glass eta by the path integrator (K1's backward); then
+                 one sample-tile of render-bdpt and one 1-spp piece of
+                 grad (a)'s step profiled as in device-times.  These two
+                 phases run last: device-times' kernel_ms sessions kept
+                 too few launches when they ran before it
 Kernel times ("ms") are the median time between CUDA events around one
 wrapper call (cuda_ms), which also counts the wrapper's host time; each
 kernel's device time per launch from torch.profiler (kernel_ms) is taken
-last, after every frame, and printed beside it ("device_ms").
+in device-times, after the frames of the phases before it, and printed
+beside it ("device_ms").
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero;
 without a CUDA device the script exits 1 before printing any result.
@@ -127,6 +149,9 @@ import numpy as np  # noqa: E402
 WATCHDOG_S = 900
 RES, SPP, DEPTH, DEPTH_RR = 512, 16, 8, 5
 TILE, SPP_CHUNK = 1 << 16, 8
+#: cuts that keep the run inside its budget (PERF.md §4): render-lights'
+#: timed frame takes 8 spp, and its profiled tile-chunk 2
+LIGHTS_SPP, LIGHTS_PROFILE_SPP = 8, 2
 #: bench.py's ray-count convention: per camera sample, the primary ray
 #: plus a shadow ray and a continuation per bounce, ~5.5 bounces
 AVG_BOUNCES = 5.5
@@ -654,6 +679,8 @@ def phase_kernel(dev):
         f"rays to the light and past it match plain, closest and any hit "
         f"(null-shell rows skipped by any-hit)")
 
+    backward = k1_backward(o, d, t_min, t_max, tris)
+
     rec = {
         "name": "dense_sweep", "route": "cuda",
         "source": "mcpt_tpu_torch/csrc/dense_sweep.cu",
@@ -664,6 +691,7 @@ def phase_kernel(dev):
         "shape": f"{n} rays x {p} tris",
         "cornell_ms": ms_b, "cornell_plain_ms": plain_b,
         "lights_walk_ms": ms_c,
+        "backward": backward,
         "sweep_device_ms": {},
     }
     time_on_device(rec, "device_ms",
@@ -691,6 +719,49 @@ def phase_kernel(dev):
     say(f"kernel-K1: every shape {ds.SHAPES} matches plain, closest and any "
         f"hit, on {n} rays x " + ", ".join(sets) + " triangles")
     return rec
+
+
+#: rays of (a) whose K1 gradient is also taken on the CPU
+K1_BACKWARD_CPU_RAYS = 4096
+
+
+def k1_backward(o, d, t_min, t_max, tris):
+    """K1's backward (dense_sweep.DenseClosestHit: plain torch, the
+    winning row's Moller-Trumbore again) at (a)'s shape: its time between
+    events, with the forward's graph kept, and the gradients of t, v and w
+    into o and d held against the same on the CPU (plain forward) for the
+    first K1_BACKWARD_CPU_RAYS rays, within 1e-5 relative to the largest."""
+    import torch
+
+    from mcpt_tpu_torch.ops import dense_sweep as ds
+
+    def grads(o, d, t_min, t_max, tris):
+        o = o.clone().requires_grad_()
+        d = d.clone().requires_grad_()
+        valid, t, _, v, w, _ = ds.DenseClosestHit.apply(o, d, t_min, t_max,
+                                                       tris)
+        outs = (torch.where(valid, t, torch.zeros_like(t)), v, w)
+        ones = tuple(torch.ones_like(x) for x in outs)
+        return outs, ones, o, d
+
+    outs, ones, o_g, d_g = grads(o, d, t_min, t_max, tris)
+    ms = cuda_ms(lambda: torch.autograd.grad(outs, (o_g, d_g), ones,
+                                             retain_graph=True), reps=10)
+    g_card = torch.autograd.grad(outs, (o_g, d_g), ones)
+    m = K1_BACKWARD_CPU_RAYS
+    outs, ones, o_c, d_c = grads(*(x[:m].cpu() for x in (o, d, t_min, t_max)),
+                                 tris.cpu())
+    g_cpu = torch.autograd.grad(outs, (o_c, d_c), ones)
+    err = max(float((a[:m].cpu() - b).abs().max() / b.abs().max())
+              for a, b in zip(g_card, g_cpu))
+    if not err <= 1e-5:
+        raise AssertionError(f"K1 backward: card and CPU gradients differ by "
+                             f"{err:.3g} of the largest")
+    say(f"kernel-K1 backward: {o.shape[0]} rays x {tris.shape[0]} triangles, "
+        f"grad of t, v, w into o, d {ms:.3f} ms between events (plain torch, "
+        f"the winner's row); card vs cpu on {m} rays: {err:.3g} of the "
+        f"largest")
+    return {"ms": ms, "cpu_rays": m, "max_rel_err": err}
 
 
 def _counters():
@@ -1397,19 +1468,20 @@ def phase_render_lights(dev, smi):
         raise AssertionError("render-lights: not the dense route, the "
                              "unbatched body and the alpha walk")
     # a 1-spp warm-up frame: the same code and shapes as the timed frame
-    # at 1/16 of its ~80 s
+    # at 1/8 of its ~35 s; the timed frame takes LIGHTS_SPP samples
     r.render(spp=1, tile=TILE, spp_chunk=SPP_CHUNK)
-    img, wall, counts = _render_timed(r, SPP, frame_base=1)
+    img, wall, counts = _render_timed(r, LIGHTS_SPP, frame_base=1)
     _check_image(img, "render-lights")
     per_iter = 1 + _nee_query_count(scene) * SHADOW_ALPHA_K
     if (counts["K1"] <= 0 or counts["K1_any"] or counts["K1"] % per_iter
             or counts["K2"] or counts["K3"] or counts["K4"]):
         raise AssertionError(f"render-lights: not {per_iter} closest-hit K1 "
                              f"launches a wavefront iteration ({counts})")
-    rays = RES * RES * SPP * (1 + 2 * AVG_BOUNCES)
+    rays = RES * RES * LIGHTS_SPP * (1 + 2 * AVG_BOUNCES)
     say(f"render-lights: {p} padded triangles + {len(scene.quad_kinds)} "
         f"quadric rows, {_nee_query_count(scene)} shadow queries a vertex, "
-        f"unbatched body; {RES}x{RES} {SPP}spp d{DEPTH} wall {wall:.3f} s, "
+        f"unbatched body; {RES}x{RES} {LIGHTS_SPP}spp d{DEPTH} wall "
+        f"{wall:.3f} s, "
         f"{rays / wall / 1e6:.2f} Mrays/s on {smi}; K1 launches "
         f"{counts['K1']} closest-hit ({counts['K1'] // per_iter} iterations "
         f"x {per_iter}), 0 any-hit; mean "
@@ -1418,41 +1490,56 @@ def phase_render_lights(dev, smi):
     return counts, wall, r
 
 
-def tile_chunk_profile(r, label, smi):
+def tile_chunk_profile(r, label, smi, spp=SPP_CHUNK):
     """One tile-chunk of a renderer's frame (the first 64k pixels, one spp
-    chunk of 8: 1/8 of a 512x512 16-spp frame) by the regen engine timed,
-    then again under torch.profiler: the device's busy time, its idle
-    share of the unprofiled wall, the device activities (kernels, copies,
-    sets) and the unprofiled run's K1 launches."""
+    chunk of `spp`, 8 by default: 1/8 of a 512x512 16-spp frame) by the
+    regen engine timed, then again under torch.profiler: the device's busy
+    time, its idle share of the unprofiled wall, the device activities
+    (kernels, copies, sets) and the unprofiled run's K1 launches."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from mcpt_tpu_torch.render.renderer import render_tile_regen
 
     idx = torch.arange(TILE, device=r.device)
+    return profile_run(
+        lambda: render_tile_regen(r.scene, r.camera, r.integrator, idx, spp,
+                                  frame_base=2, spp_total=SPP),
+        f"device-times: {label} tile-chunk ({TILE} px x {spp} spp)", smi)
+
+
+def profile_run(fn, label, smi):
+    """`fn()` timed to a synchronize, then again under torch.profiler
+    (device activities only: the host's ops would multiply the events to
+    read back): its wall, the device's busy time and idle share of that
+    wall, the device activities (kernels, copies, sets) and the timed
+    run's K1 launches.  Runs after the frames it could slow: frames timed
+    after a profiler session were slower (PERF.md)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     def run():
-        render_tile_regen(r.scene, r.camera, r.integrator, idx, SPP_CHUNK,
-                          frame_base=2, spp_total=SPP)
+        fn()
         torch.cuda.synchronize()
 
+    torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise AssertionError(f"{label}: the profiler recorded no device "
+                             f"activity")
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
-    say(f"device-times: {label} tile-chunk ({TILE} px x {SPP_CHUNK} spp) "
-        f"wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
+    say(f"{label} wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
         f"{1 - busy / wall:.3f}, {len(events)} device activities, K1 "
         f"launches {counts['K1'] - counts['K1_any']} closest + "
-        f"{counts['K1_any']} any-hit, on {smi}")
-    return {"tile_chunk_wall_s": wall, "device_busy_s": busy,
+        f"{counts['K1_any']} any-hit, K2 {counts['K2']}, on {smi}")
+    return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1 - busy / wall, "device_activities": len(events),
             "counts": counts}
 
@@ -1513,6 +1600,187 @@ def phase_s1_means(dev):
     from mcpt_tpu_torch.scene.builtin import bump_and_bead
 
     card_vs_cpu(bump_and_bead, dev, "s1-means", gate_pixels=False)
+
+
+#: BDPT's frame, as the reference harness times the caustic scene by
+#: BDPT (scripts/bench_suite.py:49-50): 8 spp, 3.5 bounces a sample
+BDPT_SPP, BDPT_AVG_BOUNCES = 8, 3.5
+
+
+def phase_render_bdpt(dev, smi):
+    """render-bdpt: the glass-sphere caustic without its fog (bdpt_caustic)
+    by BDPT through the chunked engine and K1, timed after a 1-spp warm-up
+    frame: each sample-tile makes 1 + K_LIGHT + (bounces) closest hits and
+    (NEE queries + K_LIGHT) x (bounces) any-hits, none of K2-K4; then the
+    64x64 card render against the CPU's.  Returns the frame's counts and
+    one sample-tile's render, which device-times profiles."""
+    from mcpt_tpu_torch.integrators.bdpt import DEPTH_CAP, K_LIGHT
+    from mcpt_tpu_torch.integrators.path import _nee_query_count
+    import torch
+
+    from mcpt_tpu_torch.ops.traversal import DENSE_MAX_PRIMS
+    from mcpt_tpu_torch.render.renderer import Renderer, render_pixels
+    from mcpt_tpu_torch.scene.builtin import bdpt_caustic
+
+    r = Renderer(bdpt_caustic(), device=dev)
+    scene = r.scene
+    p = scene.geom.packed_tris.shape[0]
+    if (p > DENSE_MAX_PRIMS or r.integrator.itype != "bdpt"
+            or not scene.quad_kinds or scene.has_opacity):
+        raise AssertionError("render-bdpt: not BDPT on the dense route with "
+                             "a quadric")
+    r.render(spp=1, tile=TILE, spp_chunk=SPP_CHUNK)  # 1-spp warm-up frame
+    img, wall, counts = _render_timed(r, BDPT_SPP, frame_base=1)
+    _check_image(img, "render-bdpt")
+    bounces = min(r.integrator.depth_max, DEPTH_CAP) - 1
+    sample_tiles = -(-RES * RES // TILE) * BDPT_SPP
+    want = (sample_tiles * (1 + K_LIGHT + bounces),
+            sample_tiles * bounces * (_nee_query_count(scene) + K_LIGHT))
+    n_any = counts["K1_any"]
+    n_closest = counts["K1"] - n_any
+    if ((n_closest, n_any) != want or counts["K2"] or counts["K3"]
+            or counts["K4"]):
+        raise AssertionError(f"render-bdpt: not {want[0]} closest + {want[1]} "
+                             f"any-hit K1 launches alone ({counts})")
+    rays = RES * RES * BDPT_SPP * (1 + 2 * BDPT_AVG_BOUNCES)
+    say(f"render-bdpt: {p} padded triangles + {len(scene.quad_kinds)} quadric "
+        f"row, BDPT by the chunked engine; {RES}x{RES} {BDPT_SPP}spp "
+        f"d{r.integrator.depth_max} ({bounces} bounces, {K_LIGHT} light "
+        f"vertices) wall {wall:.3f} s, {rays / wall / 1e6:.2f} Mrays/s (1 + 2 "
+        f"x {BDPT_AVG_BOUNCES} rays a sample) on {smi}; K1 launches "
+        f"{n_closest} closest + {n_any} any-hit, K2 0, K3 0, K4 0; mean "
+        f"{np.round(img.mean(axis=(0, 1)), 4).tolist()}")
+    card_vs_cpu(bdpt_caustic, dev, "render-bdpt")
+    idx = torch.arange(TILE, device=dev)
+    return counts, (lambda: render_pixels(scene, r.camera, r.integrator, idx,
+                                          1, frame_base=2))
+
+
+#: the train step at full width: pixels, samples and the pixels a piece
+GRAD_RES, GRAD_SPP, GRAD_CHUNK = 512, 4, 1 << 16
+GRAD_FAMILIES = ("textures", "bsdf")
+
+
+def caustic_glass_by_path(**kw):
+    """bdpt_caustic's glass sphere, light and floor by the path integrator."""
+    from mcpt_tpu_torch.scene.builtin import bdpt_caustic
+
+    cfg = bdpt_caustic(**kw)
+    cfg.integrator.itype = "path"
+    return cfg
+
+
+def grad_card_vs_cpu(make_config, families, dev, label, res=64, spp=2,
+                     rtol=1e-4):
+    """make_train_step's loss (against a black target) and gradients of
+    the same res x res, spp-sample step on the card and on the CPU (plain
+    versions), same seeds: the loss within 1e-5 and every gradient leaf
+    within rtol of its largest |value| on the CPU, whose leaves of
+    `families` must not all be zero.  Returns the CPU's gradients."""
+    import torch
+
+    from mcpt_tpu_torch.parallel.shard import make_train_step
+    from mcpt_tpu_torch.render.renderer import Renderer
+
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        r = Renderer(make_config(res=res, spp=spp), device=device)
+        idx = torch.arange(res * res, device=device)
+        step = make_train_step(r.integrator, spp, families)
+        loss, g = step(r.scene, r.camera, idx,
+                       torch.zeros((res * res, 3), device=device))
+        out[device.type] = float(loss), {k: v.cpu() for k, v in g.items()}
+    (l_a, g_a), (l_b, g_b) = out["cuda"], out["cpu"]
+    errs = {}
+    for k, b in g_b.items():
+        a = g_a[k]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{label}: {k} gradient not finite")
+        scale = float(b.abs().max())
+        errs[k] = float((a - b).abs().max()) / scale if scale else 0.0
+    worst = max(errs, key=errs.get)
+    say(f"{label}: {res}x{res} {spp}spp train step card vs cpu: loss "
+        f"{l_a:.6g} vs {l_b:.6g}; largest gradient difference {errs[worst]:.3g}"
+        f" of its leaf's largest ({worst}); |grad| "
+        + ", ".join(f"{k} {float(v.norm()):.4g}" for k, v in g_b.items()))
+    if (abs(l_a / l_b - 1) > 1e-5 or errs[worst] > rtol
+            or not any(float(v.abs().max()) for v in g_b.values())):
+        raise AssertionError(f"{label}: card and CPU gradients disagree")
+    return g_b
+
+
+def phase_grad(dev, smi):
+    """grad: (a) make_train_step at full width on the envmap scene (the
+    march route, K2, whose hits are detached), families textures and bsdf,
+    512x512, 4 spp, in 65536-pixel pieces, against a target rendered at
+    other parameters: the step's wall, peak device memory, each gradient's
+    norm; (b) K1's backward in the estimator: the volumetric-caustic
+    scene's media (scatter points move with sigma_t) and the caustic's
+    glass sphere through the path integrator (refractions move with eta),
+    64x64, 2 spp, card against CPU.  Returns (a)'s counts and one piece's
+    step at 1 spp, which device-times profiles."""
+    import torch
+
+    from mcpt_tpu_torch.parallel.shard import (apply_params, make_train_step,
+                                               select_params)
+    from mcpt_tpu_torch.render.renderer import Renderer, render_pixels
+    from mcpt_tpu_torch.scene.builtin import (envmap_matpreview,
+                                              volumetric_caustic)
+
+    r = Renderer(envmap_matpreview(res=GRAD_RES, spp=GRAD_SPP), device=dev)
+    n = GRAD_RES * GRAD_RES
+    idx = torch.arange(n, device=dev)
+    p = select_params(r.scene, GRAD_FAMILIES)
+    other = dict(p)
+    other["tex.atlas"] = p["tex.atlas"] * 0.8
+    other["bsdf.reflectivity_rgb"] = p["bsdf.reflectivity_rgb"] * torch.tensor(
+        [1.0, 0.9, 0.8], device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        target = torch.cat([
+            render_pixels(apply_params(r.scene, other), r.camera,
+                          r.integrator, c, GRAD_SPP)
+            for c in idx.split(GRAD_CHUNK)])
+    torch.cuda.synchronize()
+    target_s = time.perf_counter() - t0
+
+    step = make_train_step(r.integrator, GRAD_SPP, GRAD_FAMILIES,
+                           grad_chunks=n // GRAD_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, grads = step(r.scene, r.camera, idx, target)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    norms = {k: float(v.norm()) for k, v in grads.items()}
+    say(f"grad (a): envmap scene {GRAD_RES}x{GRAD_RES} {GRAD_SPP}spp "
+        f"d{r.integrator.depth_max} train step, families {GRAD_FAMILIES}, "
+        f"{n // GRAD_CHUNK} pieces of {GRAD_CHUNK} pixels: wall {wall:.3f} s "
+        f"(target frame {target_s:.3f} s), peak device memory "
+        f"{peak / 2**30:.2f} GiB, loss {float(loss):.6g}, K2 launches "
+        f"{counts['K2']} ({counts['K2_any']} any-hit), K1 {counts['K1']}, on "
+        f"{smi}; |grad| " + ", ".join(f"{k} {v:.4g}" for k, v in norms.items()))
+    for k, v in grads.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"grad (a): {k} not finite")
+    for k in ("tex.atlas", "bsdf.reflectivity_rgb", "bsdf.edgetint_rgb"):
+        if not norms[k] > 0:
+            raise AssertionError(f"grad (a): {k} gradient is zero")
+    if counts["K2"] <= 0 or counts["K1"] or counts["K3"] or counts["K4"]:
+        raise AssertionError(f"grad (a): not the march route alone ({counts})")
+
+    grad_card_vs_cpu(volumetric_caustic, ("media",), dev,
+                     "grad (b) volcaustic media")
+    g = grad_card_vs_cpu(caustic_glass_by_path, ("bsdf",), dev,
+                         "grad (b) caustic glass eta")
+    if not float(g["bsdf.eta"].abs().max()) > 0:
+        raise AssertionError("grad (b): the glass's eta gradient is zero")
+    piece = make_train_step(r.integrator, 1, GRAD_FAMILIES)
+    return counts, (lambda: piece(r.scene, r.camera, idx[:GRAD_CHUNK],
+                                  target[:GRAD_CHUNK]))
 
 
 #: frames a side of march-unbatched, alternating with the batched body
@@ -1653,15 +1921,32 @@ def main():
     phase_s1_means(dev)
     begin("device-times")
     phase_device_times(k1, k2, k3, k4)
-    for r, label in ((r_env, "render-envmap"), (r_lights, "render-lights"),
-                     (r_vol, "render-volcaustic")):
-        tile_chunk_profile(r, label, smi)
+    for r, label, spp in ((r_env, "render-envmap", SPP_CHUNK),
+                          (r_lights, "render-lights", LIGHTS_PROFILE_SPP),
+                          (r_vol, "render-volcaustic", SPP_CHUNK)):
+        tile_chunk_profile(r, label, smi, spp)
     del r_env, r_lights, r_vol
-    k2["launches"] = c_m["K2"] + c_mat["K2"] + c_p["K2"] + c_env["K2"]
+    # the BDPT and gradient cells come last, after device-times' kernel_ms
+    # sessions, which kept too few launches when these phases ran first
+    begin("render-bdpt")
+    c_bdpt, bdpt_sample = phase_render_bdpt(dev, smi)
+    k1["bdpt_launches"] = {"closest": c_bdpt["K1"] - c_bdpt["K1_any"],
+                           "any_hit": c_bdpt["K1_any"]}
+    begin("grad")
+    c_grad, grad_piece = phase_grad(dev, smi)
+    begin("device-times (bdpt, grad)")
+    profile_run(bdpt_sample, f"device-times: render-bdpt one sample-tile "
+                f"({TILE} px x 1 spp)", smi)
+    profile_run(grad_piece, f"device-times: grad (a) one piece ({GRAD_CHUNK} "
+                f"px x 1 spp, forward and backward)", smi)
+    del bdpt_sample, grad_piece
+    k2["launches"] = (c_m["K2"] + c_mat["K2"] + c_p["K2"] + c_env["K2"]
+                      + c_grad["K2"])
     k2["launches_by_path"] = {"render-march": c_m["K2"],
                               "render-materials": c_mat["K2"],
                               "render-pairs": c_p["K2"],
-                              "render-envmap": c_env["K2"]}
+                              "render-envmap": c_env["K2"],
+                              "grad": c_grad["K2"]}
     k3["launches"] = c_p["K3"]
     k4["launches"] = c_p["K4"]
 

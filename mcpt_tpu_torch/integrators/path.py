@@ -252,8 +252,14 @@ def _nee_rr(pend, live, xi, tau, beta=None):
 
     The decision sees the full pending radiance (beta * pend, or pend
     where beta is already folded in); survivors below tau are reweighted
-    by tau / m, so E[pend'] = pend."""
-    m = (pend if beta is None else pend * beta).amax(dim=-1)
+    by tau / m, so E[pend'] = pend.
+
+    Deviation from the reference (ROADMAP R1): the weight tau / m and the
+    decision are detached from autograd.  The reference lets both into
+    the gradient, which biases it and gives NaN for a conductor's
+    edge tint; detached, E[d pend'] = d pend.  Forward values are the
+    reference's."""
+    m = (pend if beta is None else pend * beta).amax(dim=-1).detach()
     p = torch.clamp(m / tau, 0.0, 1.0)
     fire = m < tau
     keep = ~fire | (xi < p)
@@ -330,11 +336,13 @@ def _nee_area_query(scene: SceneData, hit: HitAttrs, wo, alive, xi0, xi1, xi2):
                                      torch.zeros_like(contrib))
 
 
-def _nee_queries(scene: SceneData, hit: HitAttrs, wo, alive, xi):
+def _nee_queries(scene: SceneData, hit: HitAttrs, wo, alive, xi,
+                 differentiable: bool = False):
     """Every emitter's NEE query without its occlusion test
     (path.py:462-528): a list of (wi, dist, geo_ok, contrib-if-unoccluded)
     in _nee_query_count's order — the area light, the delta lights by
-    row, the escape emitter — from the leading sample draws of xi."""
+    row, the escape emitter — from the leading sample draws of xi.
+    `differentiable` reads the envmap through the texture atlas."""
     queries = []
     cursor = 0
     if scene.n_emissive:
@@ -367,7 +375,8 @@ def _nee_queries(scene: SceneData, hit: HitAttrs, wo, alive, xi):
         if scene.env_kind == "envmap":
             wi, dist, rad, pdf, valid = emitters.sample_envmap(
                 scene.env, scene.tex, hit.position,
-                xi[cursor], xi[cursor + 1], xi[cursor + 2])
+                xi[cursor], xi[cursor + 1], xi[cursor + 2],
+                differentiable=differentiable)
         else:  # constant
             wi, dist, rad, pdf, valid = emitters.sample_constant(
                 scene.emitters, scene.env_row, hit.position,
@@ -382,7 +391,8 @@ def _nee_queries(scene: SceneData, hit: HitAttrs, wo, alive, xi):
     return queries
 
 
-def _direct_lighting(scene: SceneData, hit: HitAttrs, wo, alive, xi, beta):
+def _direct_lighting(scene: SceneData, hit: HitAttrs, wo, alive, xi, beta,
+                     differentiable: bool = False):
     """NEE over every emitter, each query against its own shadow ray,
     with shadow-ray RR where tau > 0 (csrt EvaluateDirectLightPath,
     path.cpp:138-236).  Shadow segments run surface -> light; occlusion
@@ -395,7 +405,7 @@ def _direct_lighting(scene: SceneData, hit: HitAttrs, wo, alive, xi, beta):
     s_base = rr_base - (SHADOW_ALPHA_K * q_n if scene.has_opacity else 0)
     L = torch.zeros_like(wo)
     for j, (wi, dist, geo_ok, contrib) in enumerate(
-            _nee_queries(scene, hit, wo, alive, xi)):
+            _nee_queries(scene, hit, wo, alive, xi, differentiable)):
         if tau > 0.0:
             contrib, geo_ok = _nee_rr(contrib, geo_ok, xi[rr_base + j], tau,
                                       beta)
@@ -408,11 +418,13 @@ def _direct_lighting(scene: SceneData, hit: HitAttrs, wo, alive, xi, beta):
     return L
 
 
-def _escape_radiance(scene: SceneData, look_dir):
+def _escape_radiance(scene: SceneData, look_dir, differentiable: bool = False):
     """An escaping ray's radiance from the envmap or the constant sky
-    (path.py:569-580)."""
+    (path.py:569-580); `differentiable` reads the envmap through the
+    texture atlas."""
     if scene.env_kind == "envmap":
-        return emitters.eval_envmap(scene.env, scene.tex, look_dir)
+        return emitters.eval_envmap(scene.env, scene.tex, look_dir,
+                                    differentiable=differentiable)
     if scene.env_kind == "constant":
         return scene.emitters.radiance[scene.env_row].expand(look_dir.shape)
     return torch.zeros_like(look_dir)
@@ -427,7 +439,8 @@ def _escape_pdf(scene: SceneData, look_dir):
                       dtype=look_dir.dtype, device=look_dir.device)
 
 
-def _chunked_primary(scene, integ, hit, d, through):
+def _chunked_primary(scene, integ, hit, d, through,
+                     differentiable: bool = False):
     """The chunked engine's camera-ray terms (path.py:619-643,
     volpath.py:229-268): where the ray missed, the escape radiance (the
     envmap or constant sky, then the sun's bitmap), unweighted; where it
@@ -438,7 +451,8 @@ def _chunked_primary(scene, integ, hit, d, through):
     miss = ~hit.valid
     L = zeros
     if scene.env_kind != "none":
-        L = L + _where3(miss, _escape_radiance(scene, d), zeros)
+        L = L + _where3(miss, _escape_radiance(scene, d, differentiable),
+                        zeros)
     if scene.sun_row >= 0:
         L = L + _where3(miss, emitters.eval_sun_escape(
             scene.emitters, scene.tex, scene.sun_row, d), zeros)
@@ -451,16 +465,31 @@ def _chunked_primary(scene, integ, hit, d, through):
     return L, emitter | backface
 
 
-def _escape(scene, L_samp, d, beta, pdf_mis, alive, hit, primary):
+def _kept(mask, x):
+    """x on the lanes of `mask`, 0 elsewhere ([N] or [N, 3]), for the
+    inputs of a term that a where() then drops on the other lanes.  A
+    dropped lane may hold inf or an extreme value (the last bounce's
+    throughput overflowing; a negative sampling pdf on a path that
+    ended, whose MIS weight overflows to inf / inf), and the backward
+    would multiply its 0 cotangent by it: NaN in the gradient of every
+    parameter the term reads.  The same forward on the kept lanes."""
+    m = mask if x.dim() == mask.dim() else mask[..., None]
+    return torch.where(m, x, torch.zeros_like(x))
+
+
+def _escape(scene, L_samp, d, beta, pdf_mis, alive, hit, primary,
+            differentiable: bool = False):
     """Add escaping rays' radiance to L_samp: the escape emitter's with
     MIS against its NEE pdf (a camera ray's pdf_mis of 1e12 makes the
     weight 1), then the sun bitmap on camera segments
     (path.py:1178-1195)."""
     esc = alive & ~hit.valid
     if scene.env_kind != "none":
-        w_esc = mis_weight(pdf_mis, _escape_pdf(scene, d))
+        w_esc = mis_weight(_kept(esc, pdf_mis),
+                           _kept(esc, _escape_pdf(scene, d)))
         L_samp = L_samp + _where3(
-            esc, w_esc[..., None] * beta * _escape_radiance(scene, d),
+            esc, w_esc[..., None] * _kept(esc, beta)
+            * _escape_radiance(scene, d, differentiable),
             torch.zeros_like(beta))
     if scene.sun_row >= 0:
         L_samp = L_samp + _where3(
@@ -529,14 +558,14 @@ def _emitter_hit(scene, integ, hit, d, beta, pdf_mis, alive, primary):
                          torch.ones_like(hit.t))
     pdf_direct = pdf_area_hit * (t_safe * t_safe) / torch.clamp(
         cos_prime, min=1e-12)
-    w_bsdf = mis_weight(pdf_mis, pdf_direct)
     rad = bsdfs.get_radiance(scene.bsdf, _stex(scene), hit.bsdf_id, hit.uv)
     backface = hit.inside & ~bsdfs.is_twosided(scene.bsdf, hit.bsdf_id) & has_b
     take_em = (alive & hit.valid & emitter & ~backface
                & ((cos_prime >= EPSILON_FLOAT) | primary))
     if integ.hide_emitters:
         take_em = take_em & ~primary
-    L_add = _where3(take_em, w_bsdf[..., None] * beta * rad,
+    w_bsdf = mis_weight(_kept(take_em, pdf_mis), _kept(take_em, pdf_direct))
+    L_add = _where3(take_em, w_bsdf[..., None] * _kept(take_em, beta) * rad,
                     torch.zeros_like(beta))
     return L_add, emitter | backface
 
@@ -582,14 +611,18 @@ def shade(scene: SceneData, integ, o, d, seed, differentiable: bool = False):
     escape and emitter terms, then up to depth_max - 1 bounces, each RR,
     NEE, a BSDF sample and the continuation's escape and emitter hit.
     pdf_mis starts at 1e12, so that an emitter seen through leading null
-    shells takes full weight.  Returns (L [N, 3], seed)."""
-    if differentiable:
-        raise NotImplementedError(
-            "the differentiable estimator: ROADMAP item 18")
+    shells takes full weight.  Returns (L [N, 3], seed).
+
+    differentiable=True runs exactly depth_max - 1 bounces, as the
+    reference's lax.scan does, where the default stops once no lane is
+    alive (its while_loop): the seed returned, which the next sample
+    starts from, then differs.  It also reads the envmap through the
+    texture atlas (_escape_radiance, _nee_queries)."""
     n = o.shape[0]
     hit = interpolate_hit(scene, scene_closest(scene, o, d), o, d)
     hit, seed = apply_opacity(scene, hit, seed)
-    L, ends = _chunked_primary(scene, integ, hit, d, torch.ones_like(hit.valid))
+    L, ends = _chunked_primary(scene, integ, hit, d,
+                               torch.ones_like(hit.valid), differentiable)
     alive = hit.valid & ~ends
     if _no_lights(scene) or integ.depth_max <= 1:
         return L, seed
@@ -600,11 +633,12 @@ def shade(scene: SceneData, integ, o, d, seed, differentiable: bool = False):
     no = torch.zeros_like(alive)
     wo = -d
     dep = 1
-    while dep < integ.depth_max and bool(alive.any()):
+    while dep < integ.depth_max and (differentiable or bool(alive.any())):
         seed, alive, beta = _roulette(integ, seed, torch.tensor(dep), alive,
                                       beta)
         seed, xi_nee = rng.random_floats(seed, n_nee)
-        L = L + beta * _direct_lighting(scene, hit, wo, alive, xi_nee, beta)
+        L = L + beta * _direct_lighting(scene, hit, wo, alive, xi_nee, beta,
+                                        differentiable)
         seed, alive, beta, pdf_mis, o2, d2 = _scatter(
             scene, hit, wo, seed, alive, beta, pdf_mis)
 
@@ -614,7 +648,8 @@ def shade(scene: SceneData, integ, o, d, seed, differentiable: bool = False):
                               torch.zeros_like(pdf_mis)))
         hit = interpolate_hit(scene, ghit, o2, d2)
         hit, seed = apply_opacity(scene, hit, seed)
-        L = _escape(scene, L, d2, beta, pdf_mis, alive, hit, no)
+        L = _escape(scene, L, d2, beta, pdf_mis, alive, hit, no,
+                    differentiable)
         alive = alive & hit.valid
         L_add, ends = _emitter_hit(scene, integ, hit, d2, beta, pdf_mis,
                                    alive, no)

@@ -213,10 +213,13 @@ def _flight(scene, seed, hit, o, d, scattering, cur_mid, alive, beta):
 
 def shade(scene: SceneData, integ, o, d, seed, differentiable: bool = False):
     """One sample of a ray batch through media, the chunked engine's body
-    (mcpt_tpu/integrators/volpath.py:221-404).  Returns (L [N, 3], seed)."""
-    if differentiable:
-        raise NotImplementedError(
-            "the differentiable estimator: ROADMAP item 18")
+    (mcpt_tpu/integrators/volpath.py:221-409).  Returns (L [N, 3], seed).
+
+    differentiable=True runs exactly depth_max - 1 bounces, as the
+    reference's lax.scan does, where the default stops once no lane is
+    alive; nothing else changes (the reference's volpath reads the
+    envmap's texel table either way).  A scatter point's position then
+    carries sigma_t's gradient into the next hit (K1's backward)."""
     n = o.shape[0]
     hit = interpolate_hit(scene, scene_closest(scene, o, d), o, d)
     hit, seed = apply_opacity(scene, hit, seed)
@@ -236,7 +239,7 @@ def shade(scene: SceneData, integ, o, d, seed, differentiable: bool = False):
     n_nee = nee_draw_count(scene)
     pdf_mis = torch.full((n,), 1e12, dtype=torch.float32, device=o.device)
     dep = 1
-    while dep < integ.depth_max and bool(alive.any()):
+    while dep < integ.depth_max and (differentiable or bool(alive.any())):
         seed, alive, beta = _roulette(integ, seed, torch.tensor(dep), alive,
                                       beta)
         seed, xi_nee = rng.random_floats(seed, n_nee)

@@ -313,19 +313,16 @@ def build_envmap(pixels: np.ndarray, to_world: np.ndarray, tid: int,
     )
 
 
-def _differentiable(differentiable: bool):
-    if differentiable:
-        raise NotImplementedError(
-            "differentiable envmap reads: ROADMAP item 18")
-
-
 def sample_envmap(env: EnvMapData, tex, origin, xi0, xi1, xi2,
                   differentiable: bool = False):
     """An alias-table texel draw with a uniform jitter inside the texel.
     Returns (wi, dist, radiance, pdf, valid); wi = minus the direction
     toward the texel.  xi0 -> row and v jitter, xi1 -> column and u
-    jitter, xi2 -> the alias coin."""
-    _differentiable(differentiable)
+    jitter, xi2 -> the alias coin.  The radiance is the texel table's
+    (nearest), or with `differentiable` the envmap bitmap's bilinear read
+    through the texture atlas, whose gradient reaches the atlas; each mode
+    agrees with the matching eval_envmap (mcpt_tpu/models/emitter.py:
+    337-390)."""
     h, w = env.height, env.width
     rx = xi0 * h
     cx = xi1 * w
@@ -347,34 +344,38 @@ def sample_envmap(env: EnvMapData, tex, origin, xi0, xi1, xi2,
     phi = u * TWO_PI
     wi = -normalize(_rotate(env.to_world, spherical_to_cartesian(theta, phi)))
     tx = env.texel_tab[jj.long()]                # [N, 4] row gather
+    radiance = (textures.eval_color(tex, env.tid, torch.stack([u, v], -1))
+                if differentiable else tx[..., :3])
     sin_t = torch.clamp(torch.abs(sin(theta)), min=1e-4)
     pdf = tx[..., 3] / sin_t
-    return wi, _far(origin), tx[..., :3], pdf, pdf > 0.0
+    return wi, _far(origin), radiance, pdf, pdf > 0.0
 
 
 def _dir_to_texel(env: EnvMapData, look_dir):
-    """World direction -> (theta, texel index) of the lat-long map (csrt
-    envmap.cpp:100-107)."""
+    """World direction -> (uv, theta, texel index) of the lat-long map
+    (csrt envmap.cpp:100-107)."""
     dl = normalize(_rotate(env.to_local, look_dir))
     theta, phi = cartesian_to_spherical(dl)
     u = phi * INV_TWO_PI
     v = theta * INV_PI
     row = torch.clamp((v * env.height).to(torch.int32), 0, env.height - 1)
     col = torch.clamp((u * env.width).to(torch.int32), 0, env.width - 1)
-    return theta, (row * env.width + col).long()
+    return torch.stack([u, v], -1), theta, (row * env.width + col).long()
 
 
 def eval_envmap(env: EnvMapData, tex, look_dir, differentiable: bool = False):
-    """An escaping ray's radiance: the texel table's (nearest) value."""
-    _differentiable(differentiable)
-    _, j = _dir_to_texel(env, look_dir)
+    """An escaping ray's radiance: the texel table's (nearest) value, or
+    with `differentiable` the bilinear atlas read of sample_envmap."""
+    uv, _, j = _dir_to_texel(env, look_dir)
+    if differentiable:
+        return textures.eval_color(tex, env.tid, uv)
     return env.texel_tab[j][..., :3]
 
 
 def pdf_envmap(env: EnvMapData, tex, look_dir):
     """sample_envmap's pdf of an escaping direction, for MIS (cf. csrt
     envmap.cpp:109-133)."""
-    theta, j = _dir_to_texel(env, look_dir)
+    _, theta, j = _dir_to_texel(env, look_dir)
     sin_t = torch.clamp(torch.abs(sin(theta)), min=1e-4)
     return env.texel_tab[j][..., 3] / sin_t
 

@@ -37,6 +37,7 @@ from mcpt_tpu_torch.ops.math import (
     exp,
     local_to_world,
     log1p,
+    rows,
     sin,
     sqr,
     sqrt,
@@ -125,8 +126,8 @@ def sample_flight(tables: MediumTables, mid, max_distance, xi0, xi1):
     has_med = mid >= 0
     row = _rows(mid)
     sw = tables.sampling_weight[row]
-    sigma_t = tables.sigma_t[row]
-    sigma_s = tables.sigma_s[row]
+    sigma_t = rows(tables.sigma_t, row)
+    sigma_s = rows(tables.sigma_s, row)
 
     try_scatter = (xi0 < sw) & has_med
     xi_r = xi0 / torch.clamp(sw, min=1e-12)
@@ -155,7 +156,7 @@ def eval_transmittance(tables: MediumTables, mid, distance):
     has_med = mid >= 0
     row = _rows(mid)
     sw = tables.sampling_weight[row]
-    trans = _transmittance(tables.sigma_t[row], distance)
+    trans = _transmittance(rows(tables.sigma_t, row), distance)
     pdf = sw * _mean3(trans) + (1.0 - sw)
     weight = trans / torch.clamp(pdf, min=1e-20)[..., None]
     valid = (trans > EPSILON_FLOAT).any(dim=-1)

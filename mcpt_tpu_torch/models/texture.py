@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mcpt_tpu_torch.ops.math import lerp, sqrt
+from mcpt_tpu_torch.ops.math import lerp, rows, sqrt
 
 TEX_NONE = 0
 TEX_CONSTANT = 1
@@ -163,7 +163,7 @@ def _bitmap_bilinear4(tex: TextureTables, tid, u, v):
     y1 = torch.where(y0 + 1 >= h, torch.zeros_like(y0), y0 + 1)
 
     def texel(xi, yi):
-        return tex.atlas[off + xi + w * yi]  # [N, 4]
+        return rows(tex.atlas, off + xi + w * yi)  # [N, 4]
 
     c00 = texel(x0, y0)
     c01 = texel(x0, y1)
@@ -179,7 +179,7 @@ def eval_color(tex: TextureTables, tid, uv):
     index directly (the reference's take_rows zeroes rows out of range,
     which a clamped id never is)."""
     tid = torch.clamp(tid, 0, tex.ttype.shape[0] - 1)
-    const_c = tex.color0[tid]
+    const_c = rows(tex.color0, tid)
     if TEX_CHECKERBOARD not in tex.kinds and TEX_BITMAP not in tex.kinds:
         return const_c
 
@@ -194,7 +194,7 @@ def eval_color(tex: TextureTables, tid, uv):
         cx = 2 * torch.remainder((uw * 2).to(torch.int32), 2) - 1
         cy = 2 * torch.remainder((vw * 2).to(torch.int32), 2) - 1
         checker = torch.where(((cx * cy) == 1)[..., None], const_c,
-                              tex.color1[tid])
+                              rows(tex.color1, tid))
         out = torch.where((ttype == TEX_CHECKERBOARD)[..., None], checker, out)
     if TEX_BITMAP in tex.kinds:
         bitmap = _bitmap_bilinear4(tex, tid, u, v)[..., :3]
@@ -234,7 +234,7 @@ def eval_opacity(tex: TextureTables, tid, uv):
     tid = torch.clamp(tid, 0, tex.ttype.shape[0] - 1)
     ttype = tex.ttype[tid]
     alpha = torch.where(ttype == TEX_CONSTANT,
-                        tex.color0[tid][..., 0],
+                        rows(tex.color0, tid)[..., 0],
                         torch.ones(tid.shape, dtype=torch.float32,
                                    device=tid.device))
     if TEX_BITMAP in tex.kinds:

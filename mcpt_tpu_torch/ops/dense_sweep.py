@@ -11,6 +11,12 @@ Contract: rays o, d [N,3] f32, t_min, t_max [N] f32; the packed triangle
 table [P,12] f32 (p0.xyz, e1.xyz, e2.xyz, opaque, pad, pad).  Returns a
 GeomHit: the nearest hit in [t_min, t_max) — in any-hit mode the nearest
 opaque one — with the lowest index winning among equal t.
+
+`DenseClosestHit` gives the closest hit a gradient, as the reference's
+dense route has one (its XLA scan is differentiated, traversal.py:157):
+t, v and w are the Möller–Trumbore values of each ray's winning
+triangle, so their gradient reaches the ray's o and d through that
+triangle alone; a miss's t is t_max, and its gradient goes to t_max.
 """
 
 from __future__ import annotations
@@ -88,6 +94,44 @@ def dense_sweep_plain(o, d, t_min, t_max, tris, any_hit: bool = False) -> GeomHi
         valid = valid | take
     return GeomHit(valid=valid, t=t_best, prim=prim_best, v=v_best,
                    w=w_best, inside=in_best)
+
+
+class DenseClosestHit(torch.autograd.Function):
+    """The dense closest hit with a backward.  Forward: K1 on CUDA
+    tensors, dense_sweep_plain on CPU tensors, with no graph.  Backward:
+    intersect_triangle again at each ray's winning row, N rays against
+    one triangle each in plain torch, and its gradient into o and d;
+    a miss's grad_t goes to t_max.  apply(o, d, t_min, t_max, tris)
+    returns the GeomHit fields in order; valid, prim and inside carry no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, o, d, t_min, t_max, tris):
+        hit = dense_sweep(o, d, t_min, t_max, tris)
+        ctx.save_for_backward(o, d, t_min, tris, hit.prim, hit.valid)
+        ctx.mark_non_differentiable(hit.valid, hit.prim, hit.inside)
+        return tuple(hit)
+
+    @staticmethod
+    def backward(ctx, _valid, g_t, _prim, g_v, g_w, _inside):
+        o, d, t_min, tris, prim, valid = ctx.saved_tensors
+        g_o = g_d = g_tmax = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            rows = tris[prim.long()]
+            with torch.enable_grad():
+                o_ = o.detach().requires_grad_()
+                d_ = d.detach().requires_grad_()
+                _, t, v, w, _ = intersect_triangle(
+                    o_, d_, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], t_min,
+                    torch.full_like(t_min, float("inf")))
+                g_o, g_d = torch.autograd.grad((t, v, w), (o_, d_),
+                                               (g_t, g_v, g_w))
+            # a miss's row is arbitrary: its lanes take no gradient
+            g_o = torch.where(valid[:, None], g_o, torch.zeros_like(g_o))
+            g_d = torch.where(valid[:, None], g_d, torch.zeros_like(g_d))
+        if ctx.needs_input_grad[3]:
+            g_tmax = torch.where(valid, torch.zeros_like(g_t), g_t)
+        return g_o, g_d, None, g_tmax, None
 
 
 def _check(name, x, shape, dtype, device):

@@ -25,6 +25,16 @@ def to_radians(deg):
     return deg * (PI / 180.0)
 
 
+def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for an in-range integer index of any shape, by
+    index_select: the same gather, whose backward accumulates with
+    index_add (atomics) where advanced indexing's sorts the indices and
+    adds each row's duplicates in turn — ~10 ms a call on the card when
+    65536 lanes read a few rows of a parameter table."""
+    out = table.index_select(0, idx.reshape(-1).long())
+    return out.reshape(idx.shape + table.shape[1:])
+
+
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]``; rows outside [0, T) read as zeros.
 
@@ -33,7 +43,7 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     cheap form."""
     t = table.shape[0]
     inside = (idx >= 0) & (idx < t)
-    out = table[idx.clamp(0, t - 1)]
+    out = rows(table, idx.clamp(0, t - 1))
     mask = inside.reshape(inside.shape + (1,) * (table.dim() - 1))
     return torch.where(mask, out, torch.zeros((), dtype=out.dtype, device=out.device))
 
@@ -72,12 +82,38 @@ def _in_f64(fn):
     return stable
 
 
+def _sqrt(x):
+    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).float()
+
+
+class _Sqrt(torch.autograd.Function):
+    """_sqrt with a gradient of 0 where the root is 0 (and not 1 / 0):
+    the estimator takes roots of clamped expressions on lanes whose
+    result a where() drops, and an infinite derivative there turns the
+    dropped lane's zero gradient into NaN (0 x inf), which then spreads
+    to every parameter the lane read (the reference's NaN gradients)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _sqrt(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return torch.where(y > 0.0, g / (2.0 * y), torch.zeros_like(g))
+
+
 def sqrt(x):
     """The correctly rounded float32 square root on either device: the
     card's own (IEEE), and on the CPU, whose vectorized float32 sqrt is
     an ulp off in ~0.7% of lanes, through float64 (a float64 root rounds
-    to the correctly rounded float32 one)."""
-    return torch.sqrt(x) if x.is_cuda else torch.sqrt(x.double()).float()
+    to the correctly rounded float32 one).  Under autograd its derivative
+    at 0 is 0 (_Sqrt)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Sqrt.apply(x)
+    return _sqrt(x)
 
 
 exp = _in_f64(torch.exp)
@@ -86,8 +122,61 @@ sin = _in_f64(torch.sin)
 cos = _in_f64(torch.cos)
 tan = _in_f64(torch.tan)
 atan = _in_f64(torch.atan)
-atan2 = _in_f64(torch.atan2)
-arccos = _in_f64(torch.arccos)
+_atan2 = _in_f64(torch.atan2)
+_arccos = _in_f64(torch.arccos)
+
+
+class _Arccos(torch.autograd.Function):
+    """_arccos with a gradient of 0 at |x| = 1, where the derivative is
+    infinite: a direction exactly along an envmap's pole (a cosine sample
+    with cos theta rounded to 1) otherwise turns a zero cotangent into
+    NaN (see _Sqrt)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _arccos(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = 1.0 - x.double() * x.double()
+        return torch.where(s > 0.0, -g.double() / torch.sqrt(
+            torch.where(s > 0.0, s, torch.ones_like(s))),
+            torch.zeros_like(s)).float()
+
+
+class _Atan2(torch.autograd.Function):
+    """_atan2 with a gradient of 0 at (0, 0), where it is 0 / 0."""
+
+    @staticmethod
+    def forward(ctx, y, x):
+        ctx.save_for_backward(y, x)
+        return _atan2(y, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, x = (a.double() for a in ctx.saved_tensors)
+        r2 = x * x + y * y
+        k = torch.where(r2 > 0.0, g.double() / torch.where(
+            r2 > 0.0, r2, torch.ones_like(r2)), torch.zeros_like(r2))
+        return (k * x).float(), (-k * y).float()
+
+
+def arccos(x):
+    """torch.arccos in float64, rounded to float32; under autograd its
+    derivative at |x| = 1 is 0 (_Arccos)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Arccos.apply(x)
+    return _arccos(x)
+
+
+def atan2(y, x):
+    """torch.atan2 in float64, rounded to float32; under autograd its
+    derivative at (0, 0) is 0 (_Atan2)."""
+    if (y.requires_grad or x.requires_grad) and torch.is_grad_enabled():
+        return _Atan2.apply(y, x)
+    return _atan2(y, x)
 
 
 def cross(a, b):

@@ -3,7 +3,8 @@ src/renderer/bsdfs/microfacet.cpp and the archive's ndfs/beckmann.cpp).
 
 Anisotropic GGX and Beckmann NDF sampling and pdfs with their Smith G1
 masking terms, the exact dielectric and Schlick Fresnel terms, and the
-host-side average-Fresnel fits the BSDF tables store.  Everything is
+average-Fresnel fits the BSDF tables store (on the host, and under
+autograd for parameter gradients).  Everything is
 batched over leading dims; the isotropic case is alpha_u == alpha_v.
 
 Integer powers multiply as the reference's `x**k` lowers (square and
@@ -154,23 +155,51 @@ def fresnel_schlick(cos_theta, reflectivity):
     return (1.0 - reflectivity) * pow5 + reflectivity
 
 
-def average_fresnel_scalar(eta):
-    """Scalar average-Fresnel fit (csrt bsdf.cpp:10-38), host numpy:
-    Egan-Hilgeman for eta < 1, d'Eon-Irving otherwise."""
-    eta = np.asarray(eta, np.float32)
-    lo = -1.4399 * eta**2 + 0.7099 * eta + 0.6681 + 0.0636 / eta
+def _average_fresnel_scalar_poly(eta, power, where):
+    """Scalar average-Fresnel fit (csrt bsdf.cpp:10-38): Egan-Hilgeman
+    for eta < 1, d'Eon-Irving otherwise; `power` and `where` are numpy's
+    or torch's."""
+    lo = -1.4399 * power(eta, 2) + 0.7099 * eta + 0.6681 + 0.0636 / eta
     ie = 1.0 / eta
-    hi = (0.919317 - 3.4793 * ie + 6.75335 * ie**2 - 7.80989 * ie**3
-          + 4.98554 * ie**4 - 1.36881 * ie**5)
-    return np.where(eta < 1.0, lo, hi).astype(np.float32)
+    hi = (0.919317 - 3.4793 * ie + 6.75335 * power(ie, 2)
+          - 7.80989 * power(ie, 3) + 4.98554 * power(ie, 4)
+          - 1.36881 * power(ie, 5))
+    return where(eta < 1.0, lo, hi)
+
+
+def _average_fresnel_rgb_poly(r, g, power):
+    """Conductor average-Fresnel fit in the Gulbrandsen parametrization
+    (csrt bsdf.cpp:40-51)."""
+    return (0.087237 + 0.0230685 * g - 0.0864902 * power(g, 2)
+            + 0.0774594 * power(g, 3) + 0.782654 * r - 0.136432 * power(r, 2)
+            + 0.278708 * power(r, 3) + 0.19744 * g * r
+            + 0.0360605 * power(g, 2) * r - 0.2586 * g * power(r, 2))
+
+
+def _pow(x, k):
+    return x**k
+
+
+def average_fresnel_scalar(eta):
+    """The scalar fit on the host (numpy), for the committed tables."""
+    eta = np.asarray(eta, np.float32)
+    return _average_fresnel_scalar_poly(eta, _pow,
+                                        np.where).astype(np.float32)
 
 
 def average_fresnel_rgb(reflectivity, edgetint):
-    """Conductor average-Fresnel fit in the Gulbrandsen parametrization
-    (csrt bsdf.cpp:40-51), host numpy."""
+    """The conductor fit on the host (numpy), for the committed tables."""
     r = np.asarray(reflectivity, np.float32)
     g = np.asarray(edgetint, np.float32)
-    return (0.087237 + 0.0230685 * g - 0.0864902 * g**2 + 0.0774594 * g**3
-            + 0.782654 * r - 0.136432 * r**2 + 0.278708 * r**3
-            + 0.19744 * g * r + 0.0360605 * g**2 * r
-            - 0.2586 * g * r**2).astype(np.float32)
+    return _average_fresnel_rgb_poly(r, g, _pow).astype(np.float32)
+
+
+def average_fresnel_scalar_torch(eta):
+    """The scalar fit under autograd (the reference's
+    average_fresnel_scalar_jnp), for parallel/shard.py::apply_params."""
+    return _average_fresnel_scalar_poly(eta, _ipow, torch.where)
+
+
+def average_fresnel_rgb_torch(reflectivity, edgetint):
+    """The conductor fit under autograd (average_fresnel_rgb_jnp)."""
+    return _average_fresnel_rgb_poly(reflectivity, edgetint, _ipow)

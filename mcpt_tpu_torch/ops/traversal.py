@@ -15,6 +15,10 @@ Scenes of at most DENSE_MAX_PRIMS padded prims go to the dense sweep
 
 Every kernel runs for CUDA tensors and its plain version for CPU
 tensors; nothing falls back from one to the other.
+
+Gradients follow the reference (traversal.py:636-660): the dense closest
+hit carries one into the rays (dense_sweep.DenseClosestHit); the march
+and pair routes return detached records, and any-hit results are bools.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 
 from mcpt_tpu_torch.ops import march_sweep as msw
 from mcpt_tpu_torch.ops import pair_sweep as psw
-from mcpt_tpu_torch.ops.dense_sweep import GeomHit, dense_sweep
+from mcpt_tpu_torch.ops.dense_sweep import (DenseClosestHit, GeomHit,
+                                            dense_sweep)
 from mcpt_tpu_torch.ops.math import EPSILON_DISTANCE, MAX_FLOAT
 
 __all__ = [
@@ -265,7 +270,13 @@ def _trace(geom, o, d, t_min, t_max, any_hit, sort_bias=None) -> GeomHit:
     o, d = o.contiguous(), d.contiguous()
     lo, hi = _bounds(o, t_min, t_max)
     if geom.packed_tris.shape[0] <= DENSE_MAX_PRIMS:
-        return dense_sweep(o, d, lo, hi, geom.packed_tris, any_hit=any_hit)
+        if not any_hit:
+            return GeomHit(*DenseClosestHit.apply(o, d, lo, hi,
+                                                  geom.packed_tris))
+        with torch.no_grad():
+            return dense_sweep(o, d, lo, hi, geom.packed_tris, any_hit=True)
+    # the march and pair records are detached (the reference's _detached)
+    o, d, lo, hi = o.detach(), d.detach(), lo.detach(), hi.detach()
     strategy = resolved_strategy(geom)
     if strategy == "packet":
         raise NotImplementedError(

@@ -8,9 +8,10 @@ reference:
 * `regen` (the default for the path and volpath integrators):
   `render_tile_regen`, the integrator's fused spp x depth wavefront
   (shade_regen), every lane owning all of its pixel's samples;
-* `chunked`: `render_tile` -> `render_pixels`, one camera sample of every
-  pixel at a time through the integrator's `shade`, the seed carried
-  from sample to sample.
+* `chunked` (the default for BDPT): `render_tile` -> `render_pixels`,
+  one camera sample of every pixel at a time through the integrator's
+  `shade`, the seed carried from sample to sample.  BDPT has no regen
+  body: `regen` renders a BDPT config by path's, as the reference does.
 
 Every pixel's samples are a pure function of (pixel, frame), so the image
 does not depend on the tile or chunk sizes; the two engines seed their
@@ -24,6 +25,7 @@ import os
 import numpy as np
 import torch
 
+from mcpt_tpu_torch.integrators import bdpt as bdpt_integrator
 from mcpt_tpu_torch.integrators import path as path_integrator
 from mcpt_tpu_torch.integrators import volpath as volpath_integrator
 from mcpt_tpu_torch.ops import rng
@@ -33,7 +35,15 @@ from mcpt_tpu_torch.scene.ir import RendererConfig
 
 
 def _integrator(integ):
+    """The regen engine's integrator: volpath's or path's."""
     return volpath_integrator if integ.itype == "volpath" else path_integrator
+
+
+def _shade(integ):
+    """The chunked engine's body (mcpt_tpu/render/renderer.py:54-57)."""
+    return {"volpath": volpath_integrator.shade,
+            "bdpt": bdpt_integrator.shade}.get(integ.itype,
+                                               path_integrator.shade)
 
 
 def render_pixels(scene, camera, integ, pixel_idx, spp: int, frame_base=0,
@@ -44,22 +54,24 @@ def render_pixels(scene, camera, integ, pixel_idx, spp: int, frame_base=0,
     jitter u = (sample_offset + s) / spp_total, v = VdC2(base + s + 1)
     with base = frame_base + sample_offset, and one seed per pixel,
     Tea(pixel, base), carried from sample to sample; each sample is
-    clamped (renderer.cpp:77-79) before it is summed."""
-    if differentiable:
-        raise NotImplementedError(
-            "the differentiable estimator: ROADMAP item 18")
+    clamped (renderer.cpp:77-79) before it is summed.
+
+    differentiable=True renders under autograd: each `shade` runs its
+    fixed trip count (the reference's lax.scan) and reads the envmap
+    through the texture atlas; the sample loop is the same."""
     spp_total = spp if spp_total is None else spp_total
     base = (int(frame_base) + int(sample_offset)) & 0xFFFFFFFF
     seed = rng.pixel_seed(pixel_idx, base)
     acc = torch.zeros((pixel_idx.shape[0], 3), dtype=torch.float32,
                       device=pixel_idx.device)
-    shade = _integrator(integ).shade
+    shade = _shade(integ)
     for s in range(spp):
         # the jitter in f32, as the reference computes it
         u = float(np.float32(sample_offset + s) / np.float32(spp_total))
         v = float(rng.van_der_corput_base2(base + s + 1))
         o, d = generate_rays(camera, pixel_idx, u, v)
-        radiance, seed = shade(scene, integ, o, d, seed)
+        radiance, seed = shade(scene, integ, o, d, seed,
+                               differentiable=differentiable)
         if integ.sample_clamp > 0:
             radiance = torch.clamp(radiance, max=integ.sample_clamp)
         acc = acc + radiance
@@ -109,9 +121,8 @@ class Renderer:
         Work goes in (tile, spp_chunk) pieces: chunk s of a tile renders
         samples [offset, offset + s) of `spp` (u = (offset + k) / spp,
         the reference's stratified jitter).  engine: 'regen' (the default
-        for path and volpath) or 'chunked' (the default for BDPT, which
-        the port does not render yet); MCPT_ENGINE overrides the
-        default, and any other name takes the chunked engine, as in the
+        for path and volpath) or 'chunked' (the default for BDPT);
+        MCPT_ENGINE overrides the default, and any other name takes the chunked engine, as in the
         reference."""
         if engine is None:
             engine = os.environ.get(

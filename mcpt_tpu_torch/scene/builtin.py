@@ -568,3 +568,22 @@ def volumetric_caustic(res=512, spp=16, depth_max=16, depth_rr=5,
                                   depth_rr=depth_rr),
         textures=tex, bsdfs=bsdfs, media=[fog], instances=instances,
     )
+
+
+def bdpt_caustic(res=512, spp=8, depth_max=8, depth_rr=5):
+    """The volumetric-caustic layout without its fog, rendered by BDPT:
+    the layout of the reference suite's volumetric-caustic/no_medium.xml
+    built in code, which its harness times at 512x512, 8 spp with
+    itype="bdpt" (scripts/bench_suite.py:49-50).  volumetric_caustic's
+    glass sphere (a quadric), area light, floor and camera; no fog box and
+    no media.  Depth 8, the cap BDPT's bounce loop reaches anyway.  Four
+    triangles (the floor and the light) and one quadric row: K1 and the
+    quadric sweep."""
+    cfg = volumetric_caustic(res=res, spp=spp, depth_max=depth_max,
+                             depth_rr=depth_rr)
+    cfg.media = []
+    cfg.instances = [i for i in cfg.instances if i.shape != "cube"]
+    for inst in cfg.instances:
+        inst.id_medium_int = inst.id_medium_ext = -1
+    cfg.integrator.itype = "bdpt"
+    return cfg

@@ -13,8 +13,8 @@ P(tri) = (w_L / sum_w) * (area_tri / area_L), so pdf_area = P(light) /
 area_light — the reference's identity (csrt path.cpp:225-228); an
 emissive quadric owns one cell of that CDF.
 
-Everything outside the port's slices raises NotImplementedError naming
-its ROADMAP item, rather than rendering something else.
+BDPT's connections weigh against a uniform density over the surfaces of
+the non-emitting instances (map_inst_area_pdf).
 """
 
 from __future__ import annotations
@@ -80,6 +80,9 @@ class SceneData:
     bsdf: BsdfTables
     map_inst_bsdf: torch.Tensor       # [I] int32 (-1 = none)
     map_inst_light_pdf: torch.Tensor  # [I] f32 P(light)/area, 0 if no light
+    #: [I] f32 1 / (area x non-emitter instances) of every non-light
+    #: instance, 0 for lights: BDPT's connection density
+    map_inst_area_pdf: torch.Tensor
     em: EmissiveTris
     emitters: EmitterTables           # analytic lights, one row each
     env: EnvMapData                   # the envmap (a placeholder if none)
@@ -109,14 +112,6 @@ class SceneData:
     #: texture kinds the BSDF tables reach (the envmap's, the sun's and a
     #: spot's bitmaps stay out of surface shading)
     surface_kinds: tuple = (1, 2, 3)
-
-
-def _check_slice(config: RendererConfig):
-    """Refuse what the port does not render yet."""
-    if config.integrator.itype not in ("path", "volpath"):
-        raise NotImplementedError(
-            f"integrator '{config.integrator.itype}': ROADMAP item 17"
-        )
 
 
 def _quadric_row(info):
@@ -188,7 +183,6 @@ def _escape_emitters(config: RendererConfig, device):
 
 
 def compile_scene(config: RendererConfig, device="cuda") -> SceneData:
-    _check_slice(config)
     device = torch.device(device)
     tex_infos = config.textures.infos
     bsdf = build_bsdf_tables(config.bsdfs, device, tex_infos)
@@ -276,6 +270,14 @@ def compile_scene(config: RendererConfig, device="cuda") -> SceneData:
 
     sum_w = sum(w for _, w, _ in lights) or 1.0
     map_inst_light_pdf = np.zeros(max(n_inst, 1), np.float32)
+    # BDPT's uniform-surface density (mcpt_tpu/scene/compile.py:280-292)
+    light_ids = {i for i, _, _ in lights}
+    n_non_emitter = max(n_inst - len(lights), 1)
+    map_inst_area_pdf = np.zeros(max(n_inst, 1), np.float32)
+    for inst_id in range(n_inst):
+        if inst_id not in light_ids:
+            map_inst_area_pdf[inst_id] = 1.0 / (inst_area(inst_id)
+                                                * n_non_emitter)
     em_rows = []  # (tri or None, P(cell), pdf_area, bsdf_id)
     em_quad_cells = []
     for inst_id, weight, bsdf_id in lights:
@@ -345,6 +347,7 @@ def compile_scene(config: RendererConfig, device="cuda") -> SceneData:
         bsdf=bsdf,
         map_inst_bsdf=dev(map_inst_bsdf if n_inst else np.zeros(1, np.int32)),
         map_inst_light_pdf=dev(map_inst_light_pdf),
+        map_inst_area_pdf=dev(map_inst_area_pdf),
         em=em,
         emitters=build_emitter_tables(config.emitters, device),
         env=env,
@@ -458,6 +461,7 @@ def scene_from_arrays(arrays: dict, device="cuda", quad_kinds=(),
         bsdf=group(BsdfTables, "bsdf", col_kinds=col_kinds),
         map_inst_bsdf=get("map_inst_bsdf"),
         map_inst_light_pdf=get("map_inst_light_pdf"),
+        map_inst_area_pdf=get("map_inst_area_pdf"),
         em=group(EmissiveTris, "em"),
         emitters=group(EmitterTables, "emitters"),
         env=group(EnvMapData, "env", width=env_shape[0],

@@ -64,7 +64,7 @@ class CameraInfo:
 @dataclasses.dataclass
 class IntegratorInfo:
     # csrt integrator.hpp:16-27
-    itype: str = "path"          # "path" | "volpath"
+    itype: str = "path"          # "path" | "volpath" | "bdpt"
     depth_max: int = 64
     depth_rr: int = 5
     pdf_rr: float = 0.95

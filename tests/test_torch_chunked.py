@@ -18,7 +18,6 @@ mcpt_tpu on the CPU.
 * The two engines agree statistically where no camera sits in a medium
   (they seed samples otherwise): frame means within 4% at 256 spp, the
   reference's own bound (tests/test_regen.py).
-* differentiable=True raises, naming ROADMAP item 18.
 """
 
 import numpy as np
@@ -30,7 +29,6 @@ from mcpt_tpu.render.renderer import Renderer as JaxRenderer
 from mcpt_tpu.render.renderer import _freeze
 from mcpt_tpu.render.renderer import render_pixels as jax_render_pixels
 from mcpt_tpu.scene.compile import compile_scene as jax_compile_scene
-from mcpt_tpu_torch.integrators import path, volpath
 from mcpt_tpu_torch.render.renderer import Renderer, render_pixels
 from mcpt_tpu_torch.scene.builtin import volumetric_caustic
 from mcpt_tpu_torch.scene.ir import EmitterInfo, EmitterType
@@ -115,19 +113,3 @@ def test_default_engine_and_mcpt_engine(monkeypatch):
     np.testing.assert_array_equal(r.render(tile=64),
                                   r.render(tile=64, engine="chunked"))
     assert not np.array_equal(regen, r.render(tile=64))
-
-
-def test_differentiable_raises_item_18():
-    r = Renderer(volumetric_caustic(res=4, spp=1, depth_max=2), device="cpu")
-    idx = torch.arange(4)
-    o = torch.zeros((4, 3))
-    d = torch.tensor([[0.0, 0.0, -1.0]] * 4)
-    for call in (
-            lambda: render_pixels(r.scene, r.camera, r.integrator, idx, 1,
-                                  differentiable=True),
-            lambda: path.shade(r.scene, r.integrator, o, d, idx,
-                               differentiable=True),
-            lambda: volpath.shade(r.scene, r.integrator, o, d, idx,
-                                  differentiable=True)):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            call()

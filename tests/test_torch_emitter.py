@@ -31,6 +31,7 @@ import torch
 from mcpt_tpu import native
 from mcpt_tpu.integrators import path as JP
 from mcpt_tpu.models import emitter as JE
+from mcpt_tpu.models.texture import TextureBuilder as JaxTextureBuilder
 from mcpt_tpu.scene.compile import compile_scene as jax_compile_scene
 from mcpt_tpu_torch.integrators import path as TP
 from mcpt_tpu_torch.models import emitter as TE
@@ -42,6 +43,8 @@ from tests.test_torch_scene import to_jax_config
 
 N = 4096
 EMIT_SHARE = 0.0025
+#: the differentiable envmap reads' relative tolerance
+DIFF_RTOL = 3e-4
 
 
 def _emitters():
@@ -89,7 +92,7 @@ def _lanes(seed=1):
             r.random(N, dtype=f))
 
 
-def _hold(got, want):
+def _hold(got, want, rtol=1e-5):
     bad = np.zeros(N, bool)
     for g, w in zip(got, want):
         g, w = g.numpy(), np.asarray(w)
@@ -98,7 +101,7 @@ def _hold(got, want):
             continue
         assert np.isfinite(g).all() and g.shape == w.shape
         g, w = g.reshape(N, -1), w.reshape(N, -1)
-        bad |= ~np.isclose(g, w, rtol=1e-5, atol=1e-6).all(axis=-1)
+        bad |= ~np.isclose(g, w, rtol=rtol, atol=1e-6).all(axis=-1)
     assert bad.mean() <= EMIT_SHARE, bad.mean()
 
 
@@ -195,8 +198,21 @@ def test_envmap_tables_and_queries_match_reference(h, w, black):
            TE.pdf_envmap(t, None, torch.as_tensor(look))],
           [JE.eval_envmap(j, None, jnp.asarray(look)),
            JE.pdf_envmap(j, None, jnp.asarray(look))])
-    with pytest.raises(NotImplementedError, match="item 18"):
-        TE.eval_envmap(t, None, torch.as_tensor(look), differentiable=True)
+    # the differentiable reads: the bitmap through the texture atlas,
+    # bilinear, so the ulps acos/atan2 leave in an escape's uv move the
+    # weights (up to 1.6e-4 relative measured): rtol DIFF_RTOL
+    ttex, jtex = TextureBuilder(), JaxTextureBuilder()
+    assert ttex.add_bitmap(px) == jtex.add_bitmap(px) == 0
+    ttex, jtex = ttex.build("cpu"), jtex.build()
+    _hold([TE.sample_envmap(t, ttex, torch.as_tensor(origin),
+                            *map(torch.as_tensor, (xi0, xi1, xi2)),
+                            differentiable=True)[2],
+           TE.eval_envmap(t, ttex, torch.as_tensor(look), differentiable=True)],
+          [JE.sample_envmap(j, jtex, jnp.asarray(origin),
+                            *map(jnp.asarray, (xi0, xi1, xi2)),
+                            differentiable=True)[2],
+           JE.eval_envmap(j, jtex, jnp.asarray(look), differentiable=True)],
+          rtol=DIFF_RTOL)
 
 
 def _nee_scene(kinds, env, area):

@@ -586,3 +586,49 @@ def test_volpath_render_card_vs_cpu(phase, engine):
     make = functools.partial(volumetric_caustic, phase=phase,
                              g=-0.5 if phase == "hg" else 0.0)
     card_vs_cpu(make, dev, f"volcaustic {phase} {engine}", engine=engine)
+
+
+@pytest.mark.cuda
+def test_dense_closest_hit_backward_card_vs_cpu():
+    """K1's autograd backward (DenseClosestHit: the kernel's forward, the
+    winning row's Moller-Trumbore again in plain torch) on the card
+    against the same on the CPU (plain forward), by chip_smoke.k1_backward:
+    the gradients of t, v and w into o and d within 1e-5 of the largest."""
+    from chip_smoke import k1_backward
+
+    dev = _cuda()
+    o, d = (torch.as_tensor(x, device=dev) for x in random_rays(8192))
+    tris = torch.as_tensor(random_tris(2048), device=dev)
+    t_max = torch.full((8192,), 3.4e38, device=dev)
+    t_max[::16] = 0.0
+    rec = k1_backward(o, d, torch.full((8192,), 1e-4, device=dev), t_max,
+                      tris)
+    assert rec["max_rel_err"] <= 1e-5
+
+
+@pytest.mark.cuda
+def test_bdpt_render_card_vs_cpu():
+    """A 64x64, 4 spp BDPT render of bdpt_caustic (depth 8, the chunked
+    engine) on the card against the CPU's, by chip_smoke.card_vs_cpu."""
+    from chip_smoke import card_vs_cpu
+    from mcpt_tpu_torch.scene.builtin import bdpt_caustic
+
+    card_vs_cpu(bdpt_caustic, _cuda(), "bdpt_caustic")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["volcaustic media", "caustic glass eta"])
+def test_train_step_card_vs_cpu(case):
+    """make_train_step's loss and gradients on the card against the CPU's,
+    64x64, 2 spp, by chip_smoke.grad_card_vs_cpu (rtol 1e-4 of each
+    leaf's largest): the fog's sigma_s and sigma_t, whose scatter points
+    move the next hits, and the glass sphere's eta through the path
+    integrator, whose refractions do (K1's backward on the card)."""
+    from chip_smoke import caustic_glass_by_path, grad_card_vs_cpu
+    from mcpt_tpu_torch.scene.builtin import volumetric_caustic
+
+    make, families = {
+        "volcaustic media": (volumetric_caustic, ("media",)),
+        "caustic glass eta": (caustic_glass_by_path, ("bsdf",)),
+    }[case]
+    grad_card_vs_cpu(make, families, _cuda(), case)

@@ -119,8 +119,9 @@ def torch_scene_arrays(scene) -> dict:
             value = getattr(tables, f)
             if isinstance(value, torch.Tensor):
                 out[f"{group}.{f}"] = value.cpu().numpy()
-    for f in ("map_inst_bsdf", "map_inst_light_pdf", "map_inst_medium_int",
-              "map_inst_medium_ext", "brdf_avg", "albedo_avg"):
+    for f in ("map_inst_bsdf", "map_inst_light_pdf", "map_inst_area_pdf",
+              "map_inst_medium_int", "map_inst_medium_ext", "brdf_avg",
+              "albedo_avg"):
         out[f] = getattr(scene, f).cpu().numpy()
     return out
 
@@ -205,7 +206,7 @@ def test_compile_scene_leaves_equal(name):
     ref = jax_scene_arrays(jscene)
     scene = compile_scene(tcfg, device="cpu")
     got = torch_scene_arrays(scene)
-    assert len(got) == 105
+    assert len(got) == 106
     for key, value in got.items():
         want = reference_leaf(ref, key)
         assert value.dtype == want.dtype, key
@@ -283,24 +284,17 @@ def test_camera_rays_match(res):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("bdpt", "item 17"),
     ("mesh_packet_traversal", "item 22"),
 ])
 def test_out_of_slice_scenes_are_refused(monkeypatch, case, item):
+    # a mesh past DENSE_MAX_PRIMS renders through the march or the pair
+    # traversal; the reference's packet traversal is not ported
     cfg = cornell_torch_config()
-    if case == "bdpt":
-        cfg.integrator.itype = case
-    else:
-        # a mesh past DENSE_MAX_PRIMS renders through the march or the
-        # pair traversal; the reference's packet traversal is not ported
-        big = uv_sphere_mesh(92, 92)  # 16928 triangles
-        cfg.instances.append(tir.InstanceInfo(shape="mesh", mesh=big, id_bsdf=0))
-        monkeypatch.setenv("MCPT_TRAVERSAL", "packet")
-        with pytest.raises(NotImplementedError, match=item):
-            Renderer(cfg, device="cpu").render(spp=1)
-        return
+    big = uv_sphere_mesh(92, 92)  # 16928 triangles
+    cfg.instances.append(tir.InstanceInfo(shape="mesh", mesh=big, id_bsdf=0))
+    monkeypatch.setenv("MCPT_TRAVERSAL", "packet")
     with pytest.raises(NotImplementedError, match=item):
-        compile_scene(cfg, device="cpu")
+        Renderer(cfg, device="cpu").render(spp=1)
 
 
 def test_cornell_with_sphere_fills_the_dense_sweep():
