@@ -5,7 +5,8 @@
 
 Phases, one short line each:
   env            torch/CUDA versions, the card's name and power limit
-  build          nvcc build of every kernel in mcpt_tpu_torch/csrc
+  build          nvcc build of every kernel in mcpt_tpu_torch/csrc, and gcc's
+                 of the host's EXR PIZ decoder (csrc/piz.c)
   kernel-K1      the dense sweep against its plain PyTorch version, closest
                  hit and any-hit, on (a) 16384 random triangles x 65536
                  random rays and (b) the Cornell box's triangles against a
@@ -56,10 +57,10 @@ Phases, one short line each:
                  alternating with the batched body, MARCH_FRAMES frames a
                  side: both walls with their spread
   render-materials the march scene in every BSDF family plus a thin pane
-                 (cornell_mesh_materials, 51,238 triangles) at 512x512, 16
-                 spp, depth 8 after a 1-spp warm-up frame, through the
-                 batched body and K2; then a 64x64 card render held against
-                 the CPU render
+                 (cornell_mesh_materials, 51,238 triangles) at 512x512,
+                 MATERIALS_SPP (8) spp, depth 8 after a 1-spp warm-up
+                 frame, through the batched body and K2; then a 64x64 card
+                 render held against the CPU render
   render-pairs   the same for the 105,012-triangle pairs scene, through K3
                  and K4 (and K2 for corridors longer than K)
   pairs-by-march the pairs scene's frame again with MCPT_TRAVERSAL=march,
@@ -115,11 +116,25 @@ Phases, one short line each:
                  nonzero); (b) the train step's loss
                  and gradients on the card against the CPU's at 64x64, 2
                  spp: the volumetric caustic's media and the caustic's
-                 glass eta by the path integrator (K1's backward); then
-                 one sample-tile of render-bdpt and one 1-spp piece of
-                 grad (a)'s step profiled as in device-times.  These two
-                 phases run last: device-times' kernel_ms sessions kept
+                 glass eta by the path integrator (K1's backward); after
+                 cli, one sample-tile of render-bdpt and one 1-spp piece of
+                 grad (a)'s step profiled as in device-times.  These
+                 phases run after device-times: its kernel_ms sessions kept
                  too few launches when they ran before it
+  cli            two scene files written here, rendered each by
+                 mcpt_tpu_torch.cli.main (-i scene.xml -o out.exr) at
+                 512x512, 16 spp, depth 8: cornell.xml (builtin.cornell_box's
+                 layout, walls and light as rectangles, the boxes from an OBJ
+                 file; K1 alone) and matpreview.xml (a 61,440-triangle sphere
+                 from a binary PLY in a named rough conductor, a rough
+                 plastic with an EXR bitmap, a checkerboard floor, lit by a
+                 sunsky emitter alone; K2 alone, the batched body); each EXR
+                 read back by read_exr; then each parsed config's 64x64 card
+                 render against its CPU render on every pixel; one warm
+                 tile-chunk of matpreview's frame profiled; cornell.xml by
+                 `python -m mcpt_tpu_torch.cli` in a process of its own.
+                 os.environ is restored after it (the scenes' mcpt.*
+                 defaults)
 Kernel times ("ms") are the median time between CUDA events around one
 wrapper call (cuda_ms), which also counts the wrapper's host time; each
 kernel's device time per launch from torch.profiler (kernel_ms) is taken
@@ -150,8 +165,10 @@ WATCHDOG_S = 900
 RES, SPP, DEPTH, DEPTH_RR = 512, 16, 8, 5
 TILE, SPP_CHUNK = 1 << 16, 8
 #: cuts that keep the run inside its budget (PERF.md §4): render-lights'
-#: timed frame takes 8 spp, and its profiled tile-chunk 2
+#: timed frame takes 8 spp, and its profiled tile-chunk 2; render-materials'
+#: timed frame 8 spp
 LIGHTS_SPP, LIGHTS_PROFILE_SPP = 8, 2
+MATERIALS_SPP = 8
 #: bench.py's ray-count convention: per camera sample, the primary ray
 #: plus a shadow ray and a continuation per bounce, ~5.5 bounces
 AVG_BOUNCES = 5.5
@@ -482,6 +499,12 @@ def phase_build():
     for line in info["ptxas"]:
         say(f"build: {line}")
     build.library()
+    from mcpt_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.piz()
+    say(f"build: {os.path.relpath(native.library_path(), HERE)} (gcc, the "
+        f"host's EXR PIZ decoder) loaded in {time.perf_counter() - t0:.2f} s")
 
 
 #: K1's and K4's times on the card before their redesign, between CUDA
@@ -837,11 +860,12 @@ def phase_render_cornell(dev, smi):
     return n_closest + n_any
 
 
-def card_vs_cpu(make_config, dev, label, engine=None, gate_pixels=True):
+def card_vs_cpu(make_config, dev, label, engine=None, gate_pixels=True,
+                min_share=0.99):
     """The same 64x64, 4 spp render on the card and on the CPU (plain
     versions), same seeds, by `engine` (None: the renderer's default):
-    >= 99% of pixels within rtol 1e-3, atol 1e-4 (printed only where
-    gate_pixels is False), channel means within 1e-3 relative."""
+    >= `min_share` of pixels within rtol 1e-3, atol 1e-4 (printed only
+    where gate_pixels is False), channel means within 1e-3 relative."""
     from mcpt_tpu_torch.render.renderer import Renderer
 
     small = make_config(res=64, spp=4)
@@ -856,7 +880,7 @@ def card_vs_cpu(make_config, dev, label, engine=None, gate_pixels=True):
         f"{rel.max():.2e} (means card "
         f"{np.round(a.mean(axis=(0, 1)), 5).tolist()}, cpu "
         f"{np.round(b.mean(axis=(0, 1)), 5).tolist()})")
-    if (gate_pixels and close.mean() < 0.99) or rel.max() > 1e-3:
+    if (gate_pixels and close.mean() < min_share) or rel.max() > 1e-3:
         raise AssertionError(f"{label}: card and CPU renders disagree")
 
 
@@ -946,18 +970,24 @@ K2_BEFORE_MS = {"camera": None, "bounce": 8.701, "soup": None,
 
 
 @contextlib.contextmanager
-def knobs(env):
-    """Set environment knobs for the duration of a block."""
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+def environ_restored():
+    """Restore os.environ as it was when the block ends: a scene's mcpt.*
+    defaults and the CLI's --set become MCPT_* variables of the process,
+    which would route later phases otherwise."""
+    saved = dict(os.environ)
     try:
         yield
     finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+@contextlib.contextmanager
+def knobs(env):
+    """Set environment knobs for the duration of a block."""
+    with environ_restored():
+        os.environ.update(env)
+        yield
 
 
 def k2_bound(args, block):
@@ -1396,9 +1426,9 @@ def body_taken(scene, counts, label):
 
 
 def phase_render_route(dev, smi, label, make_config, route, kernels,
-                       against_cpu=True, body=None, warmup_spp=SPP):
-    """Renderer.render of a mesh scene above DENSE_MAX_PRIMS at full width
-    after a warm-up frame (of `warmup_spp` samples); the route's kernels
+                       against_cpu=True, body=None, warmup_spp=SPP, spp=SPP):
+    """Renderer.render of a mesh scene above DENSE_MAX_PRIMS at full width,
+    `spp` samples, after a warm-up frame (of `warmup_spp`); the route's kernels
     must have launched, and the regen body must be `body` where given.
     Returns the kernel counts, the frame's wall and the renderer."""
     from mcpt_tpu_torch.ops.traversal import resolved_strategy
@@ -1410,7 +1440,7 @@ def phase_render_route(dev, smi, label, make_config, route, kernels,
         raise AssertionError(f"{label}: route {resolved_strategy(g)}, "
                              f"expected {route}")
     r.render(spp=warmup_spp, tile=TILE, spp_chunk=SPP_CHUNK)  # warm-up frame
-    img, wall, counts = _render_timed(r, SPP, frame_base=1)
+    img, wall, counts = _render_timed(r, spp, frame_base=1)
     _check_image(img, label)
     missing = [k for k in kernels if counts[k] <= 0]
     if missing:
@@ -1418,10 +1448,10 @@ def phase_render_route(dev, smi, label, make_config, route, kernels,
     taken = body_taken(r.scene, counts, label)
     if body is not None and taken != body:
         raise AssertionError(f"{label}: took the {taken} body, not {body}")
-    rays = RES * RES * SPP * (1 + 2 * AVG_BOUNCES)
+    rays = RES * RES * spp * (1 + 2 * AVG_BOUNCES)
     say(f"{label}: {int(g.opaque.sum())} triangles, {g.n_march_leaves} "
         f"chunks of {g.march_leaf}, route {route}, {taken} body; {RES}x{RES} "
-        f"{SPP}spp d{DEPTH} wall {wall:.3f} s, {rays / wall / 1e6:.2f} "
+        f"{spp}spp d{DEPTH} wall {wall:.3f} s, {rays / wall / 1e6:.2f} "
         f"Mrays/s on {smi}; launches K2 {counts['K2']} ({counts['K2_any']} "
         f"any-hit), K3 {counts['K3']}, K4 {counts['K4']}, K1 {counts['K1']}; "
         f"mean {np.round(img.mean(axis=(0, 1)), 4).tolist()}")
@@ -1784,7 +1814,8 @@ def phase_grad(dev, smi):
 
 
 #: frames a side of march-unbatched, alternating with the batched body
-MARCH_FRAMES = 3
+#: (2, not 3, to keep the run inside its budget: PERF.md §4)
+MARCH_FRAMES = 2
 
 
 def phase_march_unbatched(smi, r, batched_wall):
@@ -1859,6 +1890,246 @@ def phase_device_times(k1, k2, k3, k4):
             + ", ".join(f"{k}: {v:.4f}" for k, v in row.items()))
 
 
+# ------------------------------------------------------------- scene files
+
+#: builtin.cornell_box's diffuse colours and light
+CORNELL_COLORS = {"white": (0.725, 0.71, 0.68), "red": (0.63, 0.065, 0.05),
+                  "green": (0.14, 0.45, 0.091)}
+CORNELL_RADIANCE = (17.0, 12.0, 4.0)
+#: the matpreview scene's sphere: 2 x 120 x 256 = 61,440 triangles, past
+#: DENSE_MAX_PRIMS, so that the auto route takes the block march (at most
+#: 2^16 padded prims keep 256-prim chunks; more would halve them to 64,
+#: and the auto route would take the pair route)
+MATPREVIEW_SPHERE = (120, 256)
+
+
+def _xml_transform(scale=None, rot_x=0.0, rot_y=0.0, t=(0.0, 0.0, 0.0)):
+    """builtin._xform's translate @ rot_y @ rot_x @ scale as a Mitsuba
+    transform: each child left-multiplies, in document order."""
+    parts = []
+    if scale is not None:
+        parts.append('<scale x="{}" y="{}" z="{}"/>'.format(*scale))
+    if rot_x:
+        parts.append(f'<rotate x="1" angle="{rot_x}"/>')
+    if rot_y:
+        parts.append(f'<rotate y="1" angle="{rot_y}"/>')
+    parts.append('<translate x="{}" y="{}" z="{}"/>'.format(*t))
+    return '<transform name="toWorld">' + "".join(parts) + "</transform>"
+
+
+def _xml_sensor(res, spp, fov, origin, target, spp_value=None):
+    return (
+        f'<sensor type="perspective"><float name="fov" value="{fov}"/>'
+        '<string name="fovAxis" value="x"/><transform name="toWorld">'
+        '<lookat origin="{}, {}, {}" target="{}, {}, {}" up="0, 1, 0"/>'
+        '</transform>'.format(*origin, *target)
+        + '<sampler type="independent"><integer name="sampleCount" '
+        f'value="{spp_value or spp}"/></sampler><film type="hdrfilm">'
+        f'<integer name="width" value="{res}"/><integer name="height" '
+        f'value="{res}"/></film></sensor>')
+
+
+def write_cornell_scene(directory, res=RES, spp=SPP):
+    """cornell.xml: the layout of builtin.cornell_box as a Mitsuba scene
+    (walls and the light as rectangles, the two boxes as one OBJ file of
+    24 triangles in world space), the path integrator at depth 8, RR from
+    depth 5, and one perf default (mcpt.tile_retries, the renderer's own
+    default).  Returns the XML's path."""
+    from mcpt_tpu_torch.scene.builtin import _xform
+    from mcpt_tpu_torch.scene.shapes import cube_mesh
+
+    os.makedirs(directory, exist_ok=True)
+    cube = cube_mesh()
+    lines, base = [], 1
+    for kw in (dict(scale=(0.3, 0.3, 0.3), rot_y=-17, t=(0.35, 0.3, 0.3)),
+               dict(scale=(0.3, 0.6, 0.3), rot_y=17, t=(-0.35, 0.6, -0.3))):
+        m = _xform(**kw)
+        pos = cube.positions @ m[:3, :3].T + m[:3, 3]
+        lines += ["v {:.9g} {:.9g} {:.9g}".format(*p) for p in pos]
+        lines += ["f {} {} {}".format(*(f + base)) for f in cube.indices]
+        base += len(pos)
+    with open(os.path.join(directory, "boxes.obj"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    bsdfs = "".join(
+        f'<bsdf type="diffuse" id="{name}"><rgb name="reflectance" '
+        'value="{}, {}, {}"/></bsdf>'.format(*c)
+        for name, c in CORNELL_COLORS.items())
+    walls = [("white", dict(rot_x=-90)), ("white", dict(rot_x=90, t=(0, 2, 0))),
+             ("white", dict(t=(0, 1, -1))), ("red", dict(rot_y=90, t=(-1, 1, 0))),
+             ("green", dict(rot_y=-90, t=(1, 1, 0)))]
+    shapes = "".join(f'<shape type="rectangle">{_xml_transform(**kw)}'
+                     f'<ref id="{bsdf}"/></shape>' for bsdf, kw in walls)
+    shapes += ('<shape type="obj"><string name="filename" value="boxes.obj"/>'
+               '<ref id="white"/></shape>')
+    shapes += (f'<shape type="rectangle">{_xml_transform((0.25, 0.25, 1), 90, 0, (0, 1.98, 0))}'
+               '<emitter type="area"><rgb name="radiance" value="{}, {}, {}"/>'
+               '</emitter></shape>'.format(*CORNELL_RADIANCE))
+    xml = ('<scene version="0.6.0"><default name="mcpt.tile_retries" '
+           'value="2"/>'
+           + _xml_sensor(res, spp, 39.0, (0, 1, 4.5), (0, 1, 0))
+           + f'<integrator type="path"><integer name="maxDepth" value="{DEPTH}"/>'
+           f'<integer name="rrDepth" value="{DEPTH_RR}"/></integrator>'
+           + bsdfs + shapes + "</scene>")
+    path = os.path.join(directory, "cornell.xml")
+    with open(path, "w") as fh:
+        fh.write(xml)
+    return path
+
+
+def write_ply(path, mesh):
+    """A binary little-endian PLY of `mesh`'s positions, normals and
+    triangles, written with numpy."""
+    v = np.zeros(len(mesh.positions), [("p", "<f4", 3), ("n", "<f4", 3)])
+    v["p"], v["n"] = mesh.positions, mesh.normals
+    f = np.zeros(len(mesh.indices), [("k", "u1"), ("i", "<i4", 3)])
+    f["k"], f["i"] = 3, mesh.indices
+    head = ("ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {len(v)}\nproperty float x\nproperty float y\n"
+            "property float z\nproperty float nx\nproperty float ny\n"
+            f"property float nz\nelement face {len(f)}\n"
+            "property list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as fh:
+        fh.write(head.encode() + v.tobytes() + f.tobytes())
+
+
+def write_matpreview_scene(directory, res=RES, spp=SPP):
+    """matpreview.xml: a matpreview-class scene lit by a `sunsky` emitter
+    alone (the sun's position from a date, a time and a place): a
+    61,440-triangle sphere from a binary PLY in a rough conductor of a
+    named material (Au, from ior_lut), a cube in a rough plastic whose
+    diffuse albedo is an EXR bitmap (written by the port's write_exr) and
+    whose IOR is named, and a floor with a checkerboard albedo under a uv
+    transform; path integrator at depth 8, the sample count through a
+    <default>.  All opaque: the block march and the batched regen body.
+    Returns the XML's path."""
+    from mcpt_tpu_torch.scene.builtin import _tile_bitmap, uv_sphere_mesh
+    from mcpt_tpu_torch.utils.image import write_exr
+
+    os.makedirs(directory, exist_ok=True)
+    write_ply(os.path.join(directory, "sphere.ply"),
+              uv_sphere_mesh(*MATPREVIEW_SPHERE))
+    write_exr(os.path.join(directory, "tile.exr"), _tile_bitmap(size=64))
+    xml = (
+        f'<scene version="0.6.0"><default name="spp" value="{spp}"/>'
+        + _xml_sensor(res, spp, 40.0, (0.6, 1.9, 5.2), (0.5, 0.75, 0.0),
+                      spp_value="$spp")
+        + f'<integrator type="path"><integer name="maxDepth" value="{DEPTH}"/>'
+        '</integrator>'
+        '<texture type="checkerboard" id="checks"><rgb name="color0" '
+        'value="0.8, 0.78, 0.75"/><rgb name="color1" value="0.2"/>'
+        '<transform name="to_uv"><scale x="8" y="8"/></transform></texture>'
+        '<bsdf type="roughconductor" id="gold"><string name="material" '
+        'value="Au"/><float name="alpha" value="0.2"/><string '
+        'name="distribution" value="ggx"/></bsdf>'
+        '<bsdf type="roughplastic" id="plastic"><float name="alpha" '
+        'value="0.1"/><string name="intIOR" value="polypropylene"/>'
+        '<texture type="bitmap" name="diffuseReflectance"><string '
+        'name="filename" value="tile.exr"/></texture></bsdf>'
+        '<bsdf type="diffuse" id="floor"><ref name="reflectance" '
+        'id="checks"/></bsdf>'
+        '<shape type="ply"><string name="filename" value="sphere.ply"/>'
+        + _xml_transform(t=(0.0, 1.0, 0.0)) + '<ref id="gold"/></shape>'
+        '<shape type="cube">'
+        + _xml_transform((0.45, 0.45, 0.45), 0, 30, (1.7, 0.46, 0.6))
+        + '<ref id="plastic"/></shape><shape type="rectangle">'
+        + _xml_transform((6.0, 6.0, 1.0), -90)
+        + '<ref id="floor"/></shape>'
+        '<emitter type="sunsky"><float name="turbidity" value="3"/>'
+        '<integer name="year" value="2010"/><integer name="month" value="7"/>'
+        '<integer name="day" value="10"/><float name="hour" value="15"/>'
+        '<float name="latitude" value="35.6894"/><float name="longitude" '
+        'value="139.6917"/><float name="timezone" value="9"/>'
+        '<integer name="resolution" value="512"/></emitter></scene>')
+    path = os.path.join(directory, "matpreview.xml")
+    with open(path, "w") as fh:
+        fh.write(xml)
+    return path
+
+
+def phase_cli(dev, smi):
+    """cli: each scene file rendered by `python -m mcpt_tpu_torch.cli`'s
+    main on the card at 512x512, 16 spp, depth 8, its EXR read back by the
+    port's read_exr (finite, mean above 0); K1 must launch on cornell.xml
+    and K2 on matpreview.xml, each alone; then each parsed config's 64x64
+    card render against its CPU render, on every pixel; one warm
+    tile-chunk of matpreview's frame profiled as in device-times; then
+    cornell.xml by `python -m mcpt_tpu_torch.cli` in a process of its own.
+    Returns each scene's counts and wall."""
+    import tempfile
+
+    import torch
+
+    from mcpt_tpu_torch import cli
+    from mcpt_tpu_torch.render.renderer import Renderer
+    from mcpt_tpu_torch.scene.parser import load_config
+    from mcpt_tpu_torch.utils.image import read_exr
+
+    def small(xml):
+        def make(res, spp):
+            cfg = load_config(xml)
+            cfg.camera.width = cfg.camera.height = res
+            cfg.camera.spp = spp
+            return cfg
+        return make
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, environ_restored():
+        for name, write, kernel in (("cornell", write_cornell_scene, "K1"),
+                                    ("matpreview", write_matpreview_scene,
+                                     "K2")):
+            xml = write(os.path.join(tmp, name))
+            exr = os.path.join(tmp, f"{name}.exr")
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["-i", xml, "-o", exr])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            img = read_exr(exr)
+            others = [k for k in ("K1", "K2", "K3", "K4")
+                      if k != kernel and counts[k]]
+            if rc != 0 or counts[kernel] <= 0 or others:
+                raise AssertionError(f"cli {name}: rc {rc}, not {kernel} "
+                                     f"alone ({counts})")
+            if (img.shape != (RES, RES, 3) or not np.isfinite(img).all()
+                    or not img.mean() > 0):
+                raise AssertionError(f"cli {name}: the EXR read back is not "
+                                     f"a finite {RES}x{RES} image above 0")
+            say(f"cli {name}: cli.main -i {name}.xml -o {name}.exr, "
+                f"{RES}x{RES} {SPP}spp d{DEPTH}, wall {wall:.3f} s (parse, "
+                f"commit, render, write) on {smi}; {kernel} launches "
+                f"{counts[kernel]} ({counts[kernel + '_any']} any-hit), "
+                f"others 0; EXR mean "
+                f"{np.round(img.mean(axis=(0, 1)), 4).tolist()}")
+            card_vs_cpu(small(xml), dev, f"cli {name}", min_share=1.0)
+            out[name] = (counts, wall)
+        # where matpreview's frame goes: one warm tile-chunk profiled
+        tile_chunk_profile(Renderer(load_config(xml), device=dev),
+                           "cli matpreview", smi)
+        # the command line itself, in a process of its own, on the card
+        xml = os.path.join(tmp, "cornell", "cornell.xml")
+        exr = os.path.join(tmp, "cornell-cmd.exr")
+        cmd = [sys.executable, "-m", "mcpt_tpu_torch.cli", "-i", xml, "-o", exr]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                              timeout=300)
+        wall = time.perf_counter() - t0
+        log = proc.stdout.replace("\r", "\n").splitlines()
+        if (proc.returncode != 0 or not os.path.exists(exr)
+                or not any("committed on cuda" in line for line in log)):
+            raise AssertionError(f"cli command: rc {proc.returncode}, not "
+                                 f"rendered on the card: {proc.stderr[-2000:]}")
+        img = read_exr(exr)
+        _check_image(img, "cli command")
+        rendered = [line for line in log if line.startswith("[info] rendered")]
+        say(f"cli command: python -m mcpt_tpu_torch.cli -i cornell.xml -o "
+            f"cornell-cmd.exr: wall {wall:.3f} s from the process's start "
+            f"(on {smi}); {rendered[-1] if rendered else ''}; EXR mean "
+            f"{np.round(img.mean(axis=(0, 1)), 4).tolist()}")
+    return out
+
+
 def main():
     signal.signal(signal.SIGALRM, _watchdog)
     signal.alarm(WATCHDOG_S)
@@ -1899,7 +2170,7 @@ def main():
     begin("render-materials")
     c_mat, _, _ = phase_render_route(
         dev, smi, "render-materials", cornell_mesh_materials, "march",
-        ("K2",), body="batched", warmup_spp=1)
+        ("K2",), body="batched", warmup_spp=1, spp=MATERIALS_SPP)
     begin("render-pairs")
     c_p, pairs_wall, _ = phase_render_route(
         dev, smi, "render-pairs", cornell_mesh_pairs, "pairs", ("K3", "K4"),
@@ -1934,19 +2205,28 @@ def main():
                            "any_hit": c_bdpt["K1_any"]}
     begin("grad")
     c_grad, grad_piece = phase_grad(dev, smi)
+    # before the profiles below: frames timed after torch.profiler
+    # sessions were slower (see _device_jobs)
+    begin("cli")
+    c_cli = phase_cli(dev, smi)
     begin("device-times (bdpt, grad)")
     profile_run(bdpt_sample, f"device-times: render-bdpt one sample-tile "
                 f"({TILE} px x 1 spp)", smi)
     profile_run(grad_piece, f"device-times: grad (a) one piece ({GRAD_CHUNK} "
                 f"px x 1 spp, forward and backward)", smi)
     del bdpt_sample, grad_piece
+    k1["cli_cornell_launches"] = {
+        "closest": c_cli["cornell"][0]["K1"] - c_cli["cornell"][0]["K1_any"],
+        "any_hit": c_cli["cornell"][0]["K1_any"]}
+    c_cli_mat = c_cli["matpreview"][0]["K2"]
     k2["launches"] = (c_m["K2"] + c_mat["K2"] + c_p["K2"] + c_env["K2"]
-                      + c_grad["K2"])
+                      + c_grad["K2"] + c_cli_mat)
     k2["launches_by_path"] = {"render-march": c_m["K2"],
                               "render-materials": c_mat["K2"],
                               "render-pairs": c_p["K2"],
                               "render-envmap": c_env["K2"],
-                              "grad": c_grad["K2"]}
+                              "grad": c_grad["K2"],
+                              "cli matpreview": c_cli_mat}
     k3["launches"] = c_p["K3"]
     k4["launches"] = c_p["K4"]
 

@@ -16,11 +16,19 @@ reference:
 Every pixel's samples are a pure function of (pixel, frame), so the image
 does not depend on the tile or chunk sizes; the two engines seed their
 samples differently, so their images agree statistically.
+
+A tile lost to a device fault is rendered again (`MCPT_TILE_RETRIES`).
+The reference's `_tile_fallback` and `_is_compiler_crash` are not ported:
+they retry a tile with other XLA compile options after the TPU's compiler
+crashed, and the port compiles no tile program: its kernels are built
+once, by nvcc, at their first call.
 """
 
 from __future__ import annotations
 
 import os
+import time
+import warnings
 
 import numpy as np
 import torch
@@ -114,16 +122,27 @@ class Renderer:
         self.integrator = config.integrator
 
     def render(self, spp: int | None = None, tile: int = 1 << 16,
-               frame_base: int = 0, spp_chunk: int = 8,
-               engine: str | None = None) -> np.ndarray:
+               frame_base: int = 0, progress: bool = False,
+               spp_chunk: int = 8, engine: str | None = None) -> np.ndarray:
         """Render the full frame; returns linear-light [H, W, 3] float32.
 
         Work goes in (tile, spp_chunk) pieces: chunk s of a tile renders
         samples [offset, offset + s) of `spp` (u = (offset + k) / spp,
         the reference's stratified jitter).  engine: 'regen' (the default
         for path and volpath) or 'chunked' (the default for BDPT);
-        MCPT_ENGINE overrides the default, and any other name takes the chunked engine, as in the
-        reference."""
+        MCPT_ENGINE overrides the default, and any other name takes the
+        chunked engine, as in the reference.  progress=True prints the
+        reference's percent and ETA line as the chunks finish.
+
+        A tile whose render raises a device fault (RuntimeError, which
+        covers torch.cuda.OutOfMemoryError and torch.AcceleratorError) is
+        rendered again on the same device through the same kernels, up to
+        MCPT_TILE_RETRIES times (default 2), each retry with a warning;
+        after the last the error is raised.  Every pixel's samples are a
+        pure function of (pixel, frame), so a retried tile equals the lost
+        one.  torch reports a fault when a launch or the tile's copy to
+        the host runs; a sticky CUDA error poisons the context, so its
+        retries fail again and the error is raised."""
         if engine is None:
             engine = os.environ.get(
                 "MCPT_ENGINE",
@@ -136,11 +155,14 @@ class Renderer:
         chunks = [spp_chunk] * (spp // spp_chunk)
         if spp % spp_chunk:
             chunks.append(spp % spp_chunk)
+        retries = int(os.environ.get("MCPT_TILE_RETRIES", "2"))
 
         frame = np.zeros((n_pix, 3), np.float32)
-        for start in range(0, n_pix, tile):
-            end = min(start + tile, n_pix)
-            idx = torch.arange(start, end, dtype=torch.int64, device=self.device)
+        t0 = time.time()
+        done, total_work = 0, n_pix * spp
+
+        def render_one(idx):
+            nonlocal done
             acc = None
             s_done = 0
             for s in chunks:
@@ -150,5 +172,29 @@ class Renderer:
                 contrib = film * float(s)
                 acc = contrib if acc is None else acc + contrib
                 s_done += s
-            frame[start:end] = (acc / spp).cpu().numpy()
+                done += idx.shape[0] * s
+                if progress:
+                    pct = 100.0 * done / total_work
+                    eta = (time.time() - t0) / done * (total_work - done)
+                    print(f"\r[info] render {pct:5.1f}%  eta {eta:6.1f}s",
+                          end="", flush=True)
+            return (acc / spp).cpu().numpy()
+
+        for start in range(0, n_pix, tile):
+            end = min(start + tile, n_pix)
+            idx = torch.arange(start, end, dtype=torch.int64, device=self.device)
+            done_before = done
+            for attempt in range(retries + 1):
+                try:
+                    frame[start:end] = render_one(idx)
+                    break
+                except RuntimeError as err:
+                    if isinstance(err, NotImplementedError) or attempt >= retries:
+                        raise
+                    warnings.warn(
+                        f"tile [{start}:{end}] lost ({type(err).__name__}); "
+                        f"re-rendering (attempt {attempt + 1})")
+                    done = done_before
+        if progress:
+            print(f"\r[info] render done in {time.time() - t0:.2f}s      ")
         return frame.reshape(cam.height, cam.width, 3)
