@@ -48,6 +48,14 @@ Phases, one short line each:
                  it performs and for the full sweep), K3's and K4's times
                  before the redesign, and the most distinct chunks the pairs
                  of one warp (and of one 512-pair block) name
+  kernel-K5      the packet BVH walk against its plain version, closest hit
+                 and any-hit (valid and t bit-equal; prim, v, w, inside
+                 equal but on exact-t ties), on the march scene's 65536
+                 camera and first-bounce rays, the batched body's
+                 131072-lane input of the materials scene and 65536 random
+                 rays in a 16384-triangle soup, each in the packet route's
+                 order; times, and on the batched input the plain version's
+                 time and the bound from the walk's needed tests
   render-march   Renderer.render of the 51,236-triangle march scene at
                  512x512, 16 spp, depth 8 after a warm-up frame, through K2
                  and the batched regen body (closest hit only); then a 64x64
@@ -58,13 +66,22 @@ Phases, one short line each:
                  side: both walls with their spread
   render-materials the march scene in every BSDF family plus a thin pane
                  (cornell_mesh_materials, 51,238 triangles) at 512x512,
-                 MATERIALS_SPP (8) spp, depth 8 after a 1-spp warm-up
+                 MATERIALS_SPP (4) spp, depth 8 after a 1-spp warm-up
                  frame, through the batched body and K2; then a 64x64 card
                  render held against the CPU render
   render-pairs   the same for the 105,012-triangle pairs scene, through K3
                  and K4 (and K2 for corridors longer than K)
   pairs-by-march the pairs scene's frame again with MCPT_TRAVERSAL=march,
                  beside render-pairs' wall: which route is faster on the card
+  render-packet  the march scene with MCPT_TRAVERSAL=packet at 512x512, 16
+                 spp, depth 8 after a 1-spp warm-up frame, through the
+                 batched body and K5 alone (no K1-K4 launch); then a 64x64,
+                 1 spp, depth 3 card render held against the CPU's render
+                 of every 61st of its pixels (PACKET_CHECK)
+  coh            the march scene at 64x64, 4 spp with MCPT_COH=1 through
+                 the unbatched body, card vs CPU; the origin-chunk keys
+                 must reach the march's ray order; the card image without
+                 the option must be equal bit for bit
   render-envmap  the matpreview-class scene lit by a 2048x1024 HDR envmap
                  alone (envmap_matpreview: the 51,200-triangle sphere in
                  rough gold, a bump-mapped cube, a bitmap floor) at 512x512,
@@ -75,7 +92,7 @@ Phases, one short line each:
                  analytic spheres, a disk and a cylinder, glossy plates, a
                  checkerboard, alpha-masked quads, point, spot, directional,
                  sun and constant-sky lights) the same way but at
-                 LIGHTS_SPP (8) spp after a 1-spp warm-up frame, through K1 and
+                 LIGHTS_SPP (1) spp after a 1-spp warm-up frame, through K1 and
                  the unbatched body: every shadow query walks its alpha
                  crossings by closest hits, so K1 makes 1 + 6 x 4 closest-hit
                  launches a wavefront iteration and no any-hit one
@@ -95,16 +112,28 @@ Phases, one short line each:
                  ripple bump map and an emissive sphere of radius 0.02),
                  64x64 4 spp card vs CPU: the share of pixels close is
                  printed, the channel means must agree within 1e-3
-  device-times   each kernel's device time per launch at its timed input,
+  sharded        multi-device rendering (parallel/): (c) a process in an
+                 NCCL job of world size 1 and (d) two processes sharing
+                 the card over gloo, started together (this script with
+                 --sharded-worker), render the 128x128, 16 spp Cornell
+                 film by render_film_multihost (bit-equal to one
+                 render_pixels call) and take one all-reduced 64x64, 2 spp
+                 train step (within 1e-4 of one process's); each must say
+                 it rendered on cuda; (b) make_train_step over [card] * 2
+                 against [card]; (a) render_film_sharded of the Cornell box
+                 at 512x512, 16 spp over [card] * 3, bit-equal to one
+                 render_pixels call, both walls
+  device-times   each kernel's device time per launch at its timed input
+                 (K5's on the batched input),
                  and K1's shape sweep: every shape's device time at each
                  table size of kernel-K1 (the evidence for shape_for); then
                  one tile-chunk of render-envmap's, render-lights' (at
-                 LIGHTS_PROFILE_SPP, 2 spp) and render-volcaustic's frames
+                 LIGHTS_PROFILE_SPP, 1 spp) and render-volcaustic's frames
                  under torch.profiler: device busy time, idle share against
                  the same tile-chunk unprofiled, device activities, K1
                  launches
   render-bdpt    the glass-sphere caustic without fog (bdpt_caustic) by
-                 BDPT through the chunked engine, 512x512, 8 spp, depth 8
+                 BDPT through the chunked engine, 512x512, BDPT_SPP (1) spp, depth 8
                  after a 1-spp warm-up frame: K1 alone, exactly 11 closest
                  and 28 any-hit launches a sample-tile; then the 64x64
                  card render against the CPU's
@@ -165,10 +194,10 @@ WATCHDOG_S = 900
 RES, SPP, DEPTH, DEPTH_RR = 512, 16, 8, 5
 TILE, SPP_CHUNK = 1 << 16, 8
 #: cuts that keep the run inside its budget (PERF.md §4): render-lights'
-#: timed frame takes 8 spp, and its profiled tile-chunk 2; render-materials'
-#: timed frame 8 spp
-LIGHTS_SPP, LIGHTS_PROFILE_SPP = 8, 2
-MATERIALS_SPP = 8
+#: timed frame and its profiled tile-chunk take 1 spp; render-materials'
+#: timed frame 4 spp; render-bdpt's frame 1 spp (BDPT_SPP)
+LIGHTS_SPP, LIGHTS_PROFILE_SPP = 1, 1
+MATERIALS_SPP = 4
 #: bench.py's ray-count convention: per camera sample, the primary ray
 #: plus a shadow ray and a continuation per bounce, ~5.5 bounces
 AVG_BOUNCES = 5.5
@@ -231,9 +260,10 @@ def random_rays(n, seed=1, spread=6.0):
     return o, d
 
 
-def soup_geometry(n_tris, dev, seed=41):
+def soup_geometry(n_tris, dev, seed=41, leaf_size=4):
     """A random soup (random_tris) with exact duplicates (ties) and 70%
-    opaque prims, committed as the renderer commits a mesh."""
+    opaque prims, committed as the renderer commits a mesh (BVH leaves of
+    `leaf_size` prims)."""
     from mcpt_tpu_torch.scene.geometry import commit_geometry
 
     tris = random_tris(n_tris, seed=seed)
@@ -241,7 +271,7 @@ def soup_geometry(n_tris, dev, seed=41):
     verts = np.stack([tris[:, 0:3], tris[:, 0:3] + tris[:, 3:6],
                       tris[:, 0:3] + tris[:, 6:9]], axis=1)
     return commit_geometry(verts, None, None, None, np.zeros(n_tris), dev,
-                           tri_opaque=tris[:, 9] > 0.5)
+                           tri_opaque=tris[:, 9] > 0.5, leaf_size=leaf_size)
 
 
 def soup_rays(n, dev, seed=42):
@@ -790,11 +820,13 @@ def k1_backward(o, d, t_min, t_max, tris):
 def _counters():
     from mcpt_tpu_torch.ops import dense_sweep as ds
     from mcpt_tpu_torch.ops import march_sweep as msw
+    from mcpt_tpu_torch.ops import packet_sweep as pkt
     from mcpt_tpu_torch.ops import pair_sweep as psw
 
     return ((ds, "launches"), (ds, "any_hit_launches"),
             (msw, "launches"), (msw, "any_hit_launches"),
-            (psw, "corridor_launches"), (psw, "pair_launches"))
+            (psw, "corridor_launches"), (psw, "pair_launches"),
+            (pkt, "launches"), (pkt, "any_hit_launches"))
 
 
 def reset_counts():
@@ -803,8 +835,8 @@ def reset_counts():
 
 
 def read_counts():
-    """Kernel launches since reset_counts(): K1, K2 (and how many of each
-    were any-hit), K3, K4."""
+    """Kernel launches since reset_counts(): K1, K2 and K5 (and how many
+    of each were any-hit), K3, K4."""
     c = {f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}": getattr(mod, attr)
          for mod, attr in _counters()}
     return {
@@ -814,6 +846,8 @@ def read_counts():
         "K2_any": c["march_sweep.any_hit_launches"],
         "K3": c["pair_sweep.corridor_launches"],
         "K4": c["pair_sweep.pair_launches"],
+        "K5": c["packet_sweep.launches"],
+        "K5_any": c["packet_sweep.any_hit_launches"],
     }
 
 
@@ -865,7 +899,8 @@ def card_vs_cpu(make_config, dev, label, engine=None, gate_pixels=True,
     """The same 64x64, 4 spp render on the card and on the CPU (plain
     versions), same seeds, by `engine` (None: the renderer's default):
     >= `min_share` of pixels within rtol 1e-3, atol 1e-4 (printed only
-    where gate_pixels is False), channel means within 1e-3 relative."""
+    where gate_pixels is False), channel means within 1e-3 relative.
+    Returns the card's image."""
     from mcpt_tpu_torch.render.renderer import Renderer
 
     small = make_config(res=64, spp=4)
@@ -882,6 +917,7 @@ def card_vs_cpu(make_config, dev, label, engine=None, gate_pixels=True,
         f"{np.round(b.mean(axis=(0, 1)), 5).tolist()})")
     if (gate_pixels and close.mean() < min_share) or rel.max() > 1e-3:
         raise AssertionError(f"{label}: card and CPU renders disagree")
+    return a
 
 
 def phase_render_mesh(dev, smi):
@@ -1411,6 +1447,147 @@ def phase_kernel_k3k4(dev):
     return k3, k4
 
 
+def packet_args(g, o, d, lo, hi):
+    """K5's inputs: the rays in the packet route's order (a stable sort of
+    their coherence keys), the BVH's node boxes and its leaves' rows."""
+    import torch
+
+    from mcpt_tpu_torch.ops.traversal import _ray_sort_keys
+
+    order = torch.sort(_ray_sort_keys(g, o, d), stable=True)[1]
+    return (o[order].contiguous(), d[order].contiguous(),
+            lo[order].contiguous(), hi[order].contiguous(), g.node_min,
+            g.node_max, g.packed_tris.view(g.n_pad_leaves, g.leaf_size, 12))
+
+
+def packet_same(got, ref, args, label):
+    """K5 against its plain version: valid and t bit-equal, closest hit and
+    any-hit; prim, v, w and inside equal, but where prim differs the
+    kernel's row must give the plain version's t bit for bit (an exact-t
+    tie, from a near/far swap).  Returns (hits, ties)."""
+    import torch
+
+    from mcpt_tpu_torch.ops.intersect import intersect_triangle
+
+    for name in ("valid", "t"):
+        if not torch.equal(getattr(got, name), getattr(ref, name)):
+            raise AssertionError(f"{label}: {name} differs from the plain "
+                                 "version")
+    m = ref.valid
+    diff = m & (got.prim != ref.prim)
+    same = m & ~diff
+    for name in ("v", "w", "inside"):
+        if not torch.equal(getattr(got, name)[same], getattr(ref, name)[same]):
+            raise AssertionError(f"{label}: {name} differs at the same prim")
+    if bool(diff.any()):
+        rows = args[6].reshape(-1, 12)[got.prim[diff].long()]
+        o, d, lo = args[0][diff], args[1][diff], args[2][diff]
+        hit, t, _, _, _ = intersect_triangle(
+            o, d, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], lo,
+            torch.full_like(lo, 3.4e38))
+        if not (bool(hit.all()) and torch.equal(t, ref.t[diff])):
+            raise AssertionError(f"{label}: prim differs beyond exact ties")
+    return int(m.sum()), int(diff.sum())
+
+
+#: bytes of one BVH node's box (min and max, 3 floats each)
+NODE_BYTES = 6 * 4
+
+
+def k5_bound(args, visits):
+    """K5's bound on one input, from what the plain walk needed: 27
+    operations per slab test and 46 per triangle test of a live lane;
+    bytes: each ray read once, each output written once, and once each
+    node box and each leaf row (ROW_BYTES) that some packet visited."""
+    n = len(args[0])
+    nodes = visits["nodes"]
+    n_leaves = args[6].shape[0]
+    leaf_size = args[6].shape[1]
+    leaves = int(nodes[n_leaves - 1:].sum())
+    ops = SLAB_OPS * visits["slab_tests"] + K1_OPS_PER_PAIR * visits["tri_tests"]
+    nbytes = (n * 8 * 4 + n * HIT_BYTES + int(nodes.sum()) * NODE_BYTES
+              + leaves * leaf_size * ROW_BYTES)
+    return bound(ops, nbytes)
+
+
+def phase_kernel_k5(dev):
+    """K5 against its plain version, closest hit and any-hit, on the march
+    scene's 65536 camera and first-bounce rays, on the batched body's
+    131072-lane input of the materials scene (batched_input), and on
+    65536 random rays in a random soup of 16384 triangles; each in the
+    packet route's order.  Times by events, the plain version's and the
+    bound on the batched input (the render-packet frame's shape)."""
+    import torch
+
+    from mcpt_tpu_torch.ops import packet_sweep as pkt
+    from mcpt_tpu_torch.scene.builtin import cornell_mesh_march
+
+    scene, cam = _scene(cornell_mesh_march, dev)
+    g = scene.geom
+    sets = [(label, g, packet_args(g, *rays))
+            for label, *rays in camera_and_bounce(scene, cam, dev)]
+    label, g_b, args_b = batched_input(dev)
+    sets.append((label, g_b, packet_args(g_b, *args_b[:4])))
+    g_s = soup_geometry(16384, dev, seed=47)
+    sets.append(("soup", g_s, packet_args(g_s, *soup_rays(TILE, dev,
+                                                            seed=48))))
+    times = {}
+    for label, geom, args in sets:
+        line = []
+        for any_hit in (False, True):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            ref = pkt.packet_sweep_plain(*args, any_hit=any_hit)
+            b.record()
+            b.synchronize()
+            if label == "batched" and not any_hit:
+                plain_ms = a.elapsed_time(b)
+            got = pkt.packet_sweep(*args, any_hit=any_hit)
+            n_hit, n_tie = packet_same(got, ref, args,
+                                       f"K5 {label} any_hit={any_hit}")
+            line.append(f"{'any' if any_hit else 'closest'} hits {n_hit} "
+                        f"ties {n_tie}")
+        times[label] = cuda_ms(lambda: pkt.packet_sweep(*args), reps=10)
+        say(f"kernel-K5 {label}: {len(args[0])} rays "
+            f"({int((args[3] > args[2]).sum())} live) x {geom.n_pad_leaves} "
+            f"leaves of {geom.leaf_size} (depth {geom.depth}): match plain "
+            f"({', '.join(line)}); {times[label]:.4f} ms")
+        if label == "batched":
+            batched = (args, geom)
+
+    args, geom = batched
+    visits = {}
+    pkt.packet_sweep_plain(*args, visits=visits)
+    bound_ms, bound_by = k5_bound(args, visits)
+    ms = times["batched"]
+    say(f"kernel-K5 batched: {ms:.4f} ms (plain {plain_ms:.1f} ms), bound "
+        f"{bound_ms:.4f} ms by {bound_by}: {visits['slab_tests']} slab tests, "
+        f"{visits['tri_tests']} triangle tests, {int(visits['nodes'].sum())} "
+        f"of {geom.node_min.shape[0]} nodes visited; node visits a packet "
+        f"{int(visits['internal'].min())}-{int(visits['internal'].max())} "
+        f"internal, {int(visits['leaf'].min())}-{int(visits['leaf'].max())} "
+        f"leaf")
+    rec = {
+        "name": "packet_sweep", "route": "cuda",
+        "source": "mcpt_tpu_torch/csrc/packet_sweep.cu",
+        # no Pallas kernel: the reference's XLA packet walk
+        "replaces": "mcpt_tpu/ops/traversal.py:454",
+        "launches": None, "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "shape": f"{len(args[0])} lanes (65536 continuations + 65536 shadow "
+                 f"segments) x {geom.n_pad_leaves} leaves of {geom.leaf_size}",
+        "ms_by_input": times,
+        "visits": {"slab_tests": visits["slab_tests"],
+                   "tri_tests": visits["tri_tests"],
+                   "nodes": int(visits["nodes"].sum())},
+    }
+    time_on_device(rec, "device_ms", lambda: pkt.packet_sweep(*args),
+                   "packet_kernel", reps=5)
+    return rec
+
+
 def body_taken(scene, counts, label):
     """The regen body a frame took, by the gate, checked against its
     launches: the batched body traces closest hit only (its shadow
@@ -1418,7 +1595,7 @@ def body_taken(scene, counts, label):
     from mcpt_tpu_torch.integrators.path import _use_batched_trace
 
     body = "batched" if _use_batched_trace(scene) else "unbatched"
-    n_any = counts["K1_any"] + counts["K2_any"]
+    n_any = counts["K1_any"] + counts["K2_any"] + counts["K5_any"]
     if body == "batched" and n_any:
         raise AssertionError(f"{label}: the batched body's frame launched "
                              f"{n_any} any-hit kernels")
@@ -1453,7 +1630,8 @@ def phase_render_route(dev, smi, label, make_config, route, kernels,
         f"chunks of {g.march_leaf}, route {route}, {taken} body; {RES}x{RES} "
         f"{spp}spp d{DEPTH} wall {wall:.3f} s, {rays / wall / 1e6:.2f} "
         f"Mrays/s on {smi}; launches K2 {counts['K2']} ({counts['K2_any']} "
-        f"any-hit), K3 {counts['K3']}, K4 {counts['K4']}, K1 {counts['K1']}; "
+        f"any-hit), K3 {counts['K3']}, K4 {counts['K4']}, K1 {counts['K1']}, "
+        f"K5 {counts['K5']} ({counts['K5_any']} any-hit); "
         f"mean {np.round(img.mean(axis=(0, 1)), 4).tolist()}")
     if against_cpu:
         card_vs_cpu(make_config, dev, label)
@@ -1497,8 +1675,8 @@ def phase_render_lights(dev, smi):
             or not scene.has_opacity or not scene.em_quad_cells):
         raise AssertionError("render-lights: not the dense route, the "
                              "unbatched body and the alpha walk")
-    # a 1-spp warm-up frame: the same code and shapes as the timed frame
-    # at 1/8 of its ~35 s; the timed frame takes LIGHTS_SPP samples
+    # a 1-spp warm-up frame: the same code and shapes as the timed frame,
+    # which takes LIGHTS_SPP samples
     r.render(spp=1, tile=TILE, spp_chunk=SPP_CHUNK)
     img, wall, counts = _render_timed(r, LIGHTS_SPP, frame_base=1)
     _check_image(img, "render-lights")
@@ -1633,8 +1811,9 @@ def phase_s1_means(dev):
 
 
 #: BDPT's frame, as the reference harness times the caustic scene by
-#: BDPT (scripts/bench_suite.py:49-50): 8 spp, 3.5 bounces a sample
-BDPT_SPP, BDPT_AVG_BOUNCES = 8, 3.5
+#: BDPT (scripts/bench_suite.py:49-50): 8 spp, 3.5 bounces a sample; the
+#: timed frame takes 1 spp to keep the run inside its budget (PERF.md §4)
+BDPT_SPP, BDPT_AVG_BOUNCES = 1, 3.5
 
 
 def phase_render_bdpt(dev, smi):
@@ -1709,14 +1888,15 @@ def grad_card_vs_cpu(make_config, families, dev, label, res=64, spp=2,
     `families` must not all be zero.  Returns the CPU's gradients."""
     import torch
 
-    from mcpt_tpu_torch.parallel.shard import make_train_step
+    from mcpt_tpu_torch.parallel.shard import make_mesh, make_train_step
     from mcpt_tpu_torch.render.renderer import Renderer
 
     out = {}
     for device in (dev, torch.device("cpu")):
         r = Renderer(make_config(res=res, spp=spp), device=device)
         idx = torch.arange(res * res, device=device)
-        step = make_train_step(r.integrator, spp, families)
+        step = make_train_step(r.integrator, spp, make_mesh([device]),
+                               families)
         loss, g = step(r.scene, r.camera, idx,
                        torch.zeros((res * res, 3), device=device))
         out[device.type] = float(loss), {k: v.cpu() for k, v in g.items()}
@@ -1751,8 +1931,8 @@ def phase_grad(dev, smi):
     step at 1 spp, which device-times profiles."""
     import torch
 
-    from mcpt_tpu_torch.parallel.shard import (apply_params, make_train_step,
-                                               select_params)
+    from mcpt_tpu_torch.parallel.shard import (apply_params, make_mesh,
+                                               make_train_step, select_params)
     from mcpt_tpu_torch.render.renderer import Renderer, render_pixels
     from mcpt_tpu_torch.scene.builtin import (envmap_matpreview,
                                               volumetric_caustic)
@@ -1774,7 +1954,8 @@ def phase_grad(dev, smi):
     torch.cuda.synchronize()
     target_s = time.perf_counter() - t0
 
-    step = make_train_step(r.integrator, GRAD_SPP, GRAD_FAMILIES,
+    mesh = make_mesh([dev])
+    step = make_train_step(r.integrator, GRAD_SPP, mesh, GRAD_FAMILIES,
                            grad_chunks=n // GRAD_CHUNK)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1808,7 +1989,7 @@ def phase_grad(dev, smi):
                          "grad (b) caustic glass eta")
     if not float(g["bsdf.eta"].abs().max()) > 0:
         raise AssertionError("grad (b): the glass's eta gradient is zero")
-    piece = make_train_step(r.integrator, 1, GRAD_FAMILIES)
+    piece = make_train_step(r.integrator, 1, mesh, GRAD_FAMILIES)
     return counts, (lambda: piece(r.scene, r.camera, idx[:GRAD_CHUNK],
                                   target[:GRAD_CHUNK]))
 
@@ -1865,14 +2046,291 @@ def phase_pairs_by_march(dev, smi, pairs_wall):
         f"the {faster} route is faster here")
 
 
-def phase_device_times(k1, k2, k3, k4):
+#: render-packet's card-vs-CPU check: the CPU's plain packet walk takes
+#: seconds a trace at this scene's 16384 leaves, so the CPU renders every
+#: 61st pixel of the 64x64 frame, at 1 spp and depth 3 (PERF.md §4)
+PACKET_CHECK = dict(res=64, spp=1, depth=3, stride=61)
+
+
+def phase_render_packet(dev, smi):
+    """render-packet: the march scene with MCPT_TRAVERSAL=packet through
+    the batched body and K5, 512x512, 16 spp, depth 8 after a 1-spp
+    warm-up frame, no launch of K2-K4; then a 64x64 card render against
+    the CPU's render of a spread subset of its pixels (PACKET_CHECK): a
+    pixel's value does not depend on the other pixels of its tile."""
+    import torch
+
+    from mcpt_tpu_torch.render.renderer import Renderer, render_tile_regen
+    from mcpt_tpu_torch.scene.builtin import cornell_mesh_march
+
+    with knobs({"MCPT_TRAVERSAL": "packet"}):
+        counts, wall, _ = phase_render_route(
+            dev, smi, "render-packet", cornell_mesh_march, "packet", ("K5",),
+            against_cpu=False, body="batched", warmup_spp=1)
+        if counts["K2"] or counts["K3"] or counts["K4"] or counts["K1"]:
+            raise AssertionError(f"render-packet: not K5 alone ({counts})")
+        c = PACKET_CHECK
+        cfg = cornell_mesh_march(res=c["res"], spp=c["spp"],
+                                 depth_max=c["depth"])
+        a = Renderer(cfg, device=dev).render(spp=c["spp"], tile=TILE,
+                                             spp_chunk=c["spp"])
+        a = a.reshape(-1, 3)
+        idx = torch.arange(0, c["res"] ** 2, c["stride"])
+        r = Renderer(cfg, device="cpu")
+        t0 = time.perf_counter()
+        b = render_tile_regen(r.scene, r.camera, r.integrator, idx,
+                              c["spp"]).numpy()
+        cpu_s = time.perf_counter() - t0
+    a = a[idx.numpy()]
+    close = np.isclose(a, b, rtol=1e-3, atol=1e-4).all(axis=-1)
+    say(f"render-packet: {c['res']}x{c['res']} {c['spp']}spp d{c['depth']} "
+        f"card vs cpu on {len(idx)} pixels (one in {c['stride']}; the CPU "
+        f"took {cpu_s:.1f} s): {close.mean() * 100:.2f}% within rtol 1e-3 "
+        f"atol 1e-4, {int((a == b).all(axis=-1).sum())} bit-equal; means "
+        f"card {np.round(a.mean(axis=0), 5).tolist()}, cpu "
+        f"{np.round(b.mean(axis=0), 5).tolist()}")
+    if close.mean() < 0.99 or not a.mean() > 0:
+        raise AssertionError("render-packet: card and CPU renders disagree")
+    return counts, wall
+
+
+def phase_coh(dev):
+    """coh: the march scene at 64x64, 4 spp with MCPT_COH=1 through the
+    unbatched body (MCPT_BATCH_TRACE=0; the batched body carries no
+    origin-chunk keys, as the reference's), card against CPU; the keys
+    must reach the march's ray order; then the same card render with the
+    option off: equal bit for bit, since only the order of rays changed."""
+    from mcpt_tpu_torch.ops import traversal as TT
+    from mcpt_tpu_torch.render.renderer import Renderer
+    from mcpt_tpu_torch.scene.builtin import cornell_mesh_march
+
+    keyed = []
+    march_order = TT.march_order
+
+    def spy(*args, **kwargs):
+        coh = kwargs.get("coherence", args[6] if len(args) > 6 else None)
+        keyed.append(coh is not None)
+        return march_order(*args, **kwargs)
+
+    TT.march_order = spy
+    try:
+        with knobs({"MCPT_COH": "1", "MCPT_BATCH_TRACE": "0"}):
+            on = card_vs_cpu(cornell_mesh_march, dev, "coh MCPT_COH=1")
+        n_keyed, n_calls = sum(keyed), len(keyed)
+        with knobs({"MCPT_BATCH_TRACE": "0"}):
+            off = Renderer(cornell_mesh_march(res=64, spp=4), device=dev
+                           ).render(spp=4, tile=TILE, spp_chunk=4)
+    finally:
+        TT.march_order = march_order
+    say(f"coh: {n_keyed} of {n_calls} march orders (card and CPU) took "
+        f"origin-chunk keys; the card image with MCPT_COH=1 and without it "
+        f"{'equal' if np.array_equal(on, off) else 'DIFFER'} bit for bit")
+    if not n_keyed or not np.array_equal(on, off):
+        raise AssertionError("coh: keys not used, or the image changed")
+
+
+#: the sharded film (a) at the main path's size, and the process phases
+#: (c), (d) and their train step at a smaller one (each subprocess spends
+#: most of its seconds importing torch and loading the kernels)
+SHARD_DEVICES = 3
+PROC_RES, PROC_SPP, STEP_RES, STEP_SPP = 128, 16, 64, 2
+STEP_FAMILIES = ("textures", "bsdf")
+
+
+def _step_target(n):
+    r = np.random.default_rng(9)
+    return r.uniform(0.0, 0.5, size=(n, 3)).astype(np.float32)
+
+
+def sharded_worker(mode, port, rank, world, out):
+    """One process of sharded (c) or (d): join the job (NCCL for "nccl",
+    gloo for "gloo"), render the PROC_RES film by render_film_multihost on
+    this process's mesh (every CUDA device it sees) and take one train
+    step at STEP_RES over it; write both to `out` (.npz)."""
+    import torch
+    import torch.distributed as dist
+
+    from mcpt_tpu_torch.ops import dense_sweep as ds
+    from mcpt_tpu_torch.parallel.distributed import (init_distributed,
+                                                     render_film_multihost)
+    from mcpt_tpu_torch.parallel.shard import make_mesh, make_train_step
+    from mcpt_tpu_torch.render.renderer import Renderer
+    from mcpt_tpu_torch.scene.builtin import cornell_box
+
+    if not torch.cuda.is_available():
+        raise SystemExit("sharded worker: no CUDA device")
+    init_distributed(f"localhost:{port}", world, rank,
+                     backend=None if mode == "nccl" else "gloo")
+    mesh = make_mesh()
+    t0 = time.perf_counter()
+    r = Renderer(cornell_box(res=PROC_RES, spp=PROC_SPP), device=mesh[0])
+    film = render_film_multihost(r.scene, r.camera, r.integrator, PROC_SPP,
+                                 mesh=mesh)
+    n = STEP_RES * STEP_RES
+    rs = Renderer(cornell_box(res=STEP_RES, spp=STEP_SPP), device=mesh[0])
+    loss, grads = make_train_step(rs.integrator, STEP_SPP, mesh,
+                                  STEP_FAMILIES)(
+        rs.scene, rs.camera, torch.arange(n, device=mesh[0]),
+        torch.as_tensor(_step_target(n), device=mesh[0]))
+    torch.cuda.synchronize()
+    say(f"sharded worker {mode} rank {rank}/{world}: backend "
+        f"{dist.get_backend()}, rendered on {mesh[0].type} ({mesh}), K1 "
+        f"launches {ds.launches}, film and step in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if mesh[0].type != "cuda" or not ds.launches:
+        raise AssertionError("sharded worker: did not render on the card")
+    np.savez(out, film=film, loss=float(loss),
+             **{k: v.cpu().numpy() for k, v in grads.items()})
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _compare_step(loss, grads, got, label):
+    """A process's all-reduced step against the one-process step: loss
+    within rtol 1e-5, every leaf within 1e-4 of its largest |value|."""
+    worst, err = None, 0.0
+    for k, v in grads.items():
+        ref = v.cpu().numpy()
+        scale = float(np.abs(ref).max())
+        e = float(np.abs(got[k] - ref).max()) / scale if scale else 0.0
+        if e >= err:
+            worst, err = k, e
+    say(f"{label}: loss {float(got['loss']):.6g} vs {float(loss):.6g}; "
+        f"largest gradient difference {err:.3g} of its leaf's largest "
+        f"({worst})")
+    if abs(float(got["loss"]) / float(loss) - 1) > 1e-5 or err > 1e-4:
+        raise AssertionError(f"{label}: the step differs from one process's")
+
+
+def phase_sharded(dev, smi):
+    """sharded: (c) and (d)'s processes start first and run beside (b):
+    (c) one process joins an NCCL job of world size 1 and renders the
+    PROC_RES film by render_film_multihost and one all-reduced train step;
+    (d) two processes share the card over gloo (NCCL refuses two ranks on
+    one GPU): the gathered film must equal one render_pixels call over
+    every pixel bit for bit, and the step one process's within
+    reassociation.  (b) make_train_step over [card] * 2 against [card] at
+    STEP_RES, STEP_SPP.  Then (a), alone on the card: render_film_sharded
+    of the Cornell box at 512x512, 16 spp, depth 8 over [card] *
+    SHARD_DEVICES (262144 pixels do not divide by 3: padded), bit-equal
+    to render_pixels over every pixel in one call; both walls."""
+    import tempfile
+
+    import torch
+
+    from mcpt_tpu_torch.parallel.shard import (make_mesh, make_train_step,
+                                               render_film_sharded)
+    from mcpt_tpu_torch.render.renderer import Renderer, render_pixels
+    from mcpt_tpu_torch.scene.builtin import cornell_box
+
+    tmp = tempfile.TemporaryDirectory(dir=HERE, prefix="_sharded-")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    jobs = [("nccl", 1, 0, _free_port())]
+    port = _free_port()
+    jobs += [("gloo", 2, rank, port) for rank in range(2)]
+    procs = []
+    try:
+        for mode, world, rank, p in jobs:
+            out = os.path.join(tmp.name, f"{mode}{rank}.npz")
+            procs.append((mode, rank, out, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--sharded-worker", mode, str(p), str(rank), str(world),
+                 out], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+
+        # the one-process references of (c) and (d), and (b)
+        r = Renderer(cornell_box(res=PROC_RES, spp=PROC_SPP), device=dev)
+        one = render_pixels(r.scene, r.camera, r.integrator,
+                            torch.arange(PROC_RES * PROC_RES, device=dev),
+                            PROC_SPP).cpu().numpy()
+        n = STEP_RES * STEP_RES
+        rs = Renderer(cornell_box(res=STEP_RES, spp=STEP_SPP), device=dev)
+        idx = torch.arange(n, device=dev)
+        target = torch.as_tensor(_step_target(n), device=dev)
+        steps = {k: make_train_step(rs.integrator, STEP_SPP,
+                                    make_mesh([dev] * k), STEP_FAMILIES)(
+            rs.scene, rs.camera, idx, target) for k in (1, 2)}
+        loss, grads = steps[1]
+        if not float(grads["tex.color0"].abs().max()) > 0:
+            raise AssertionError("sharded (b): the step has no gradient")
+        two = {k: v.cpu().numpy() for k, v in steps[2][1].items()}
+        two["loss"] = float(steps[2][0])
+        _compare_step(loss, grads, two, f"sharded (b) train step over "
+                      f"[{dev}] * 2 vs [{dev}], {STEP_RES}x{STEP_RES} "
+                      f"{STEP_SPP}spp")
+
+        for mode, rank, out, proc in procs:
+            log, _ = proc.communicate(timeout=300)
+            for line in log.splitlines():
+                if line.startswith("sharded worker"):
+                    say(line)
+            if proc.returncode != 0:
+                say(log[-3000:])
+                raise AssertionError(f"sharded: worker {mode} rank {rank} "
+                                     f"exited {proc.returncode}")
+            got = np.load(out)
+            same = np.array_equal(got["film"], one)
+            say(f"sharded ({'c' if mode == 'nccl' else 'd'}) {mode} rank "
+                f"{rank}: the {PROC_RES}x{PROC_RES} {PROC_SPP}spp film "
+                f"{'equals' if same else 'DIFFERS from'} one render_pixels "
+                f"call bit for bit")
+            if not same:
+                raise AssertionError("sharded: the film differs")
+            _compare_step(loss, grads, got, f"sharded {mode} rank {rank} "
+                          f"all-reduced train step")
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        tmp.cleanup()
+
+    # (a) alone on the card
+    r = Renderer(cornell_box(), device=dev)
+    mesh = make_mesh([dev] * SHARD_DEVICES)
+    walls = {}
+    for label, fn in (
+            ("sharded", lambda: render_film_sharded(
+                r.scene, r.camera, r.integrator, mesh, SPP)),
+            ("one call", lambda: render_pixels(
+                r.scene, r.camera, r.integrator,
+                torch.arange(RES * RES, device=dev), SPP))):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        img = fn()
+        torch.cuda.synchronize()
+        walls[label] = (time.perf_counter() - t0, read_counts()["K1"],
+                        img.cpu().numpy())
+    same = np.array_equal(walls["sharded"][2], walls["one call"][2])
+    _check_image(walls["sharded"][2], "sharded (a)")
+    say(f"sharded (a): cornell {RES}x{RES} {SPP}spp d{DEPTH} by "
+        f"render_film_sharded over [{dev}] * {SHARD_DEVICES} wall "
+        f"{walls['sharded'][0]:.3f} s (K1 {walls['sharded'][1]}), by "
+        f"render_pixels in one call {walls['one call'][0]:.3f} s (K1 "
+        f"{walls['one call'][1]}), on {smi}: "
+        f"{'equal' if same else 'DIFFERENT'} bit for bit")
+    if not same or not walls["sharded"][1]:
+        raise AssertionError("sharded (a): the films differ, or K1 was not "
+                             "launched")
+
+
+def phase_device_times(k1, k2, k3, k4, k5):
     """The queued device times (time_on_device), after every frame."""
     for record, field, fn, kernel, reps in _device_jobs:
         record[field] = kernel_ms(fn, kernel, reps=reps)
     for rec, label in ((k1, "K1(a)"), (k2, "K2 bounce"),
                        (k2["batched"], "K2 batched"),
                        (k2["envmap_batched"], "K2 envmap batched"),
-                       (k3, "K3 bounce"), (k4, "K4 bounce")):
+                       (k3, "K3 bounce"), (k4, "K4 bounce"),
+                       (k5, "K5 batched")):
         say(f"device-times: {label} {rec['device_ms']:.4f} ms of device time "
             f"a launch (between events {rec['ms']:.4f} ms)")
     say(f"device-times: K3 bounce against its bounds: {k3['bound_ms']:.4f} "
@@ -2156,6 +2614,8 @@ def main():
     k2 = phase_kernel_k2(dev)
     begin("kernel-K3K4")
     k3, k4 = phase_kernel_k3k4(dev)
+    begin("kernel-K5")
+    k5 = phase_kernel_k5(dev)
 
     from mcpt_tpu_torch.scene.builtin import (
         cornell_mesh_march, cornell_mesh_materials, cornell_mesh_pairs)
@@ -2177,6 +2637,11 @@ def main():
         body="unbatched")
     begin("pairs-by-march")
     phase_pairs_by_march(dev, smi, pairs_wall)
+    begin("render-packet")
+    c_pkt, _ = phase_render_packet(dev, smi)
+    k5["launches"] = c_pkt["K5"]
+    begin("coh")
+    phase_coh(dev)
     begin("render-envmap")
     c_env, _, r_env = phase_render_envmap(dev, smi)
     begin("render-lights")
@@ -2190,8 +2655,10 @@ def main():
     phase_engine_chunked(dev)
     begin("s1-means")
     phase_s1_means(dev)
+    begin("sharded")
+    phase_sharded(dev, smi)
     begin("device-times")
-    phase_device_times(k1, k2, k3, k4)
+    phase_device_times(k1, k2, k3, k4, k5)
     for r, label, spp in ((r_env, "render-envmap", SPP_CHUNK),
                           (r_lights, "render-lights", LIGHTS_PROFILE_SPP),
                           (r_vol, "render-volcaustic", SPP_CHUNK)):
@@ -2233,11 +2700,15 @@ def main():
     signal.alarm(0)
     begin("end")
     say(f"total: {time.perf_counter() - t_start:.1f} s")
-    say(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    say(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        mode, port, rank, world, out = sys.argv[2:7]
+        sharded_worker(mode, int(port), int(rank), int(world), out)
+        sys.exit(0)
     sys.exit(main())

@@ -48,6 +48,7 @@ SIGNATURES = {
     "mcpt_corridor": [_P] * 6 + [_I] * 3 + [_P] * 3,
     "mcpt_corridor_tile": [],
     "mcpt_pair_sweep": [_P] * 7 + [_I] * 5 + [_P] * 7,
+    "mcpt_packet_sweep": [_P] * 7 + [_I] * 4 + [_P] * 7,
 }
 
 

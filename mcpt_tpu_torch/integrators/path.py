@@ -269,7 +269,28 @@ def _nee_rr(pend, live, xi, tau, beta=None):
     return pend, live & keep
 
 
-def shadow_occluded(scene: SceneData, o, d, geo_ok, dist, xi=None):
+def _use_origin_chunk(scene: SceneData) -> bool:
+    """Whether continuation and shadow rays carry origin-chunk coherence
+    keys (path.py:241-260): MCPT_COH=1, off by default, on scenes past
+    DENSE_MAX_PRIMS.  The keys reach the march route's ray order only:
+    they change no hit, only which rays share a block."""
+    return (os.environ.get("MCPT_COH", "0") == "1"
+            and scene.geom.p0.shape[0] > DENSE_MAX_PRIMS)
+
+
+def _origin_chunk(scene: SceneData, shit):
+    """SAH chunk id of the hit prim, -1 on a miss or a quadric hit
+    (path.py:263-276): the coherence key of the rays that start at this
+    hit point, continuation and shadow segments alike."""
+    coh = take_rows(scene.geom.march_chunk_of_prim, shit.prim.long())
+    ok = shit.valid
+    if scene.quad_kinds:
+        ok = ok & (shit.quad < 0)
+    return torch.where(ok, coh, torch.full_like(coh, -1))
+
+
+def shadow_occluded(scene: SceneData, o, d, geo_ok, dist, xi=None,
+                    coherence=None):
     """Occlusion of the segment o -> o + dist*d (path.py:343-419).
 
     Without opacity maps: the plain any-hit.  With them, the segment's
@@ -277,10 +298,12 @@ def shadow_occluded(scene: SceneData, o, d, geo_ok, dist, xi=None):
     occludes, a null-boundary hit passes, a masked triangle occludes with
     probability alpha (the draw convention of apply_opacity; quadrics
     have no alpha); crossings past SHADOW_ALPHA_K pass.  xi:
-    [SHADOW_ALPHA_K, N] uniforms, read only with opacity maps."""
+    [SHADOW_ALPHA_K, N] uniforms, read only with opacity maps.
+    `coherence`: the origins' chunk ids (MCPT_COH), or None."""
     t_hi = torch.where(geo_ok, dist - EPSILON_DISTANCE, torch.zeros_like(dist))
     if not scene.has_opacity:
-        return scene_any(scene, o, d, t_min=EPSILON_DISTANCE, t_max=t_hi)
+        return scene_any(scene, o, d, t_min=EPSILON_DISTANCE, t_max=t_hi,
+                         coherence=coherence)
 
     g = scene.geom
     occ = torch.zeros_like(geo_ok)
@@ -290,7 +313,8 @@ def shadow_occluded(scene: SceneData, o, d, geo_ok, dist, xi=None):
     for k in range(SHADOW_ALPHA_K):
         h = scene_closest(scene, o, d, t_min=t_lo,
                           t_max=torch.where(active, t_hi,
-                                            torch.zeros_like(t_hi)))
+                                            torch.zeros_like(t_hi)),
+                          coherence=coherence)
         valid = h.valid & active
         p = h.prim.long()
         inst = g.inst_id[p]
@@ -392,13 +416,14 @@ def _nee_queries(scene: SceneData, hit: HitAttrs, wo, alive, xi,
 
 
 def _direct_lighting(scene: SceneData, hit: HitAttrs, wo, alive, xi, beta,
-                     differentiable: bool = False):
+                     differentiable: bool = False, coherence=None):
     """NEE over every emitter, each query against its own shadow ray,
     with shadow-ray RR where tau > 0 (csrt EvaluateDirectLightPath,
     path.cpp:138-236).  Shadow segments run surface -> light; occlusion
     of the segment is symmetric.  xi: [nee_draw_count, N] uniforms, laid
     out as the sample draws, then the alpha walk's SHADOW_ALPHA_K a query
-    (opacity maps only), then one RR coin a query (tau > 0 only)."""
+    (opacity maps only), then one RR coin a query (tau > 0 only).
+    `coherence`: the hit points' chunk ids (MCPT_COH), or None."""
     q_n = _nee_query_count(scene)
     tau = nee_rr_tau()
     rr_base = nee_draw_count(scene) - (q_n if tau > 0.0 else 0)
@@ -413,7 +438,7 @@ def _direct_lighting(scene: SceneData, hit: HitAttrs, wo, alive, xi, beta,
                         s_base + (j + 1) * SHADOW_ALPHA_K]
                      if scene.has_opacity else None)
         occluded = shadow_occluded(scene, hit.position, -wi, geo_ok, dist,
-                                   xi_shadow)
+                                   xi_shadow, coherence)
         L = L + _where3(occluded | ~geo_ok, torch.zeros_like(contrib), contrib)
     return L
 
@@ -619,7 +644,8 @@ def shade(scene: SceneData, integ, o, d, seed, differentiable: bool = False):
     starts from, then differs.  It also reads the envmap through the
     texture atlas (_escape_radiance, _nee_queries)."""
     n = o.shape[0]
-    hit = interpolate_hit(scene, scene_closest(scene, o, d), o, d)
+    ghit = scene_closest(scene, o, d)
+    hit = interpolate_hit(scene, ghit, o, d)
     hit, seed = apply_opacity(scene, hit, seed)
     L, ends = _chunked_primary(scene, integ, hit, d,
                                torch.ones_like(hit.valid), differentiable)
@@ -632,20 +658,25 @@ def shade(scene: SceneData, integ, o, d, seed, differentiable: bool = False):
     pdf_mis = torch.full((n,), 1e12, dtype=torch.float32, device=o.device)
     no = torch.zeros_like(alive)
     wo = -d
+    # origin-chunk keys of the rays that start at the current hit (MCPT_COH)
+    coh = _origin_chunk(scene, ghit) if _use_origin_chunk(scene) else None
     dep = 1
     while dep < integ.depth_max and (differentiable or bool(alive.any())):
         seed, alive, beta = _roulette(integ, seed, torch.tensor(dep), alive,
                                       beta)
         seed, xi_nee = rng.random_floats(seed, n_nee)
         L = L + beta * _direct_lighting(scene, hit, wo, alive, xi_nee, beta,
-                                        differentiable)
+                                        differentiable, coherence=coh)
         seed, alive, beta, pdf_mis, o2, d2 = _scatter(
             scene, hit, wo, seed, alive, beta, pdf_mis)
 
         ghit = scene_closest(
             scene, o2, d2,
             t_max=torch.where(alive, torch.full_like(pdf_mis, MAX_FLOAT),
-                              torch.zeros_like(pdf_mis)))
+                              torch.zeros_like(pdf_mis)),
+            coherence=coh)
+        if coh is not None:
+            coh = _origin_chunk(scene, ghit)
         hit = interpolate_hit(scene, ghit, o2, d2)
         hit, seed = apply_opacity(scene, hit, seed)
         L = _escape(scene, L, d2, beta, pdf_mis, alive, hit, no,
@@ -696,6 +727,10 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
     seed = rng.pixel_seed(pixel_idx, reg.base)
     alive = torch.zeros(n, dtype=torch.bool, device=dev)
     vert = torch.zeros(n, dtype=torch.int32, device=dev)
+    # origin-chunk keys (MCPT_COH): -1 for a fresh camera ray, else the
+    # chunk of the hit the lane's rays start at
+    use_coh = _use_origin_chunk(scene)
+    coh = torch.full((n,), -1, dtype=torch.int32, device=dev)
 
     while bool((alive | (work_k < spp)).any()):
         # --- regenerate: dead lanes with samples left start the next one
@@ -715,12 +750,16 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
         # --- trace (dead lanes get t_max = 0: the traversal skips them;
         # on the march route fresh camera rays and bounce continuations
         # sort into separate blocks by their class bit)
+        coh = torch.where(fresh, torch.full_like(coh, -1), coh)
         ghit = scene_closest(
             scene, o, d,
             t_max=torch.where(alive, torch.full_like(pdf_mis, MAX_FLOAT),
                               torch.zeros_like(pdf_mis)),
             sort_bias=(~fresh).int(),
+            coherence=coh if use_coh else None,
         )
+        if use_coh:
+            coh = _origin_chunk(scene, ghit)
         hit = interpolate_hit(scene, ghit, o, d)
         hit, seed = apply_opacity(scene, hit, seed)
         vert = vert + 1
@@ -735,7 +774,8 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
         # --- NEE, its shadow rays traced now
         seed, xi_nee = rng.random_floats(seed, n_nee)
         L_samp = L_samp + beta * _direct_lighting(
-            scene, hit, -d, alive, xi_nee, beta)
+            scene, hit, -d, alive, xi_nee, beta,
+            coherence=coh if use_coh else None)
 
         seed, alive, beta, pdf_mis, o, d = _scatter(
             scene, hit, -d, seed, alive, beta, pdf_mis)

@@ -30,10 +30,10 @@ def _bound(x, default):
     return default if x is None else x
 
 
-def scene_closest(scene, o, d, t_min=None, t_max=None,
-                  sort_bias=None) -> SceneHit:
+def scene_closest(scene, o, d, t_min=None, t_max=None, sort_bias=None,
+                  coherence=None) -> SceneHit:
     g = intersect_closest(scene.geom, o, d, t_min=t_min, t_max=t_max,
-                          sort_bias=sort_bias)
+                          sort_bias=sort_bias, coherence=coherence)
     if not scene.quad_kinds:
         return SceneHit(*g, quad=torch.full_like(g.prim, -1))
     qt, qidx, qin = intersect_quadrics(
@@ -52,8 +52,10 @@ def scene_closest(scene, o, d, t_min=None, t_max=None,
     )
 
 
-def scene_any(scene, o, d, t_min=None, t_max=None) -> torch.Tensor:
-    occ = intersect_any(scene.geom, o, d, t_min=t_min, t_max=t_max)
+def scene_any(scene, o, d, t_min=None, t_max=None,
+              coherence=None) -> torch.Tensor:
+    occ = intersect_any(scene.geom, o, d, t_min=t_min, t_max=t_max,
+                        coherence=coherence)
     if not scene.quad_kinds:
         return occ
     _, qidx, _ = intersect_quadrics(

@@ -1,7 +1,7 @@
 """Closest-hit and any-hit queries (counterpart of
-mcpt_tpu/ops/traversal.py: ray sort keys :359-451, routing :660-683, the
-march wrapper :781-905, the pair traversal :928-1069 and the dispatch
-:1096-1150).
+mcpt_tpu/ops/traversal.py: ray sort keys :359-451, the packet walk
+:454-623, routing :660-683, the march wrapper :781-905, the pair
+traversal :928-1069 and the dispatch :1096-1150).
 
 Scenes of at most DENSE_MAX_PRIMS padded prims go to the dense sweep
 (kernel K1).  Larger scenes take the route `resolved_strategy` picks:
@@ -11,14 +11,18 @@ Scenes of at most DENSE_MAX_PRIMS padded prims go to the dense sweep
 * ``pairs`` — each ray's first K corridor chunks (kernel K3), the
   (ray, chunk) pairs sorted by chunk and swept (kernel K4), a K-way
   per-ray min, and the block march over the rays whose corridor
-  overflows, compacted first.
+  overflows, compacted first;
+* ``packet`` (MCPT_TRAVERSAL=packet only) — rays sorted by coherence
+  keys, then the packet walk over the BVH (kernel K5), then the inverse
+  permutation.
 
 Every kernel runs for CUDA tensors and its plain version for CPU
 tensors; nothing falls back from one to the other.
 
 Gradients follow the reference (traversal.py:636-660): the dense closest
-hit carries one into the rays (dense_sweep.DenseClosestHit); the march
-and pair routes return detached records, and any-hit results are bools.
+hit carries one into the rays (dense_sweep.DenseClosestHit); the march,
+pair and packet routes return detached records, and any-hit results are
+bools.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import os
 import torch
 
 from mcpt_tpu_torch.ops import march_sweep as msw
+from mcpt_tpu_torch.ops import packet_sweep as pkt
 from mcpt_tpu_torch.ops import pair_sweep as psw
 from mcpt_tpu_torch.ops.dense_sweep import (DenseClosestHit, GeomHit,
                                             dense_sweep)
@@ -41,8 +46,8 @@ __all__ = [
 #: scenes up to this many padded primitives use the dense sweep
 DENSE_MAX_PRIMS = 16384
 
-#: MCPT_TRAVERSAL values; "packet" is the reference's block-stack BVH
-#: walk, which this port does not have (ROADMAP item 22)
+#: MCPT_TRAVERSAL values; "packet" is the block-stack BVH walk, which
+#: only MCPT_TRAVERSAL chooses
 STRATEGIES = ("auto", "march", "pairs", "packet")
 
 
@@ -148,13 +153,15 @@ def resolved_strategy(geom) -> str:
 # ---------------------------------------------------------------- march
 
 
-def march_order(geom, o, d, t_min, t_max, sort_bias=None):
+def march_order(geom, o, d, t_min, t_max, sort_bias=None, coherence=None):
     """The march's ray order: one sort of the coherence keys, with dead
     lanes (t_max <= t_min) at bit 30 so that they sort last, into blocks
     that skip the march, and the optional class `sort_bias` (camera 0,
     bounce 1) at bits 28-29, so that fresh camera rays and bounce rays
-    never share a block.  Returns the [N] permutation."""
-    keys = _ray_sort_keys(geom, o, d) | torch.where(
+    never share a block.  `coherence`: optional [N] origin chunk id (-1 =
+    unknown), _ray_sort_keys' chunk-major keys (MCPT_COH).  Returns the
+    [N] permutation."""
+    keys = _ray_sort_keys(geom, o, d, coherence=coherence) | torch.where(
         t_max <= t_min, 1 << 30, 0).to(torch.int32)
     if sort_bias is not None:
         keys = keys | (sort_bias.to(torch.int32) << 28)
@@ -162,11 +169,11 @@ def march_order(geom, o, d, t_min, t_max, sort_bias=None):
 
 
 def _intersect_march_cuda(geom, o, d, t_min, t_max, any_hit,
-                          sort_bias=None) -> GeomHit:
+                          sort_bias=None, coherence=None) -> GeomHit:
     """The block march (kernel K2) over rays in march_order, so that each
     block of ray_block() rays shares chunks; the hits go back to ray
     order.  o, d: [N, 3]; t_min, t_max: [N]."""
-    order = march_order(geom, o, d, t_min, t_max, sort_bias)
+    order = march_order(geom, o, d, t_min, t_max, sort_bias, coherence)
     hit = msw.march_sweep(o[order], d[order], t_min[order], t_max[order],
                           geom.march_min, geom.march_max, geom.march_tris,
                           geom.march_prim, any_hit=any_hit,
@@ -263,10 +270,27 @@ def _intersect_pairs(geom, o, d, t_min, t_max, any_hit) -> GeomHit:
     )
 
 
+# ---------------------------------------------------------------- packet
+
+
+def _intersect_packet(geom, o, d, t_min, t_max, any_hit) -> GeomHit:
+    """The packet walk (kernel K5) over rays in the order of a stable
+    sort of their coherence keys (MCPT_MARCH_SORT; no dead-lane bit and
+    no class, as the reference's jnp.argsort), so that each packet of
+    PACKET_BLOCK rays shares subtrees; the hits go back to ray order."""
+    order = torch.sort(_ray_sort_keys(geom, o, d), stable=True)[1]
+    tris = geom.packed_tris.view(geom.n_pad_leaves, geom.leaf_size, 12)
+    hit = pkt.packet_sweep(o[order], d[order], t_min[order], t_max[order],
+                           geom.node_min, geom.node_max, tris,
+                           any_hit=any_hit)
+    return _unsort(order, hit)
+
+
 # ---------------------------------------------------------------- dispatch
 
 
-def _trace(geom, o, d, t_min, t_max, any_hit, sort_bias=None) -> GeomHit:
+def _trace(geom, o, d, t_min, t_max, any_hit, sort_bias=None,
+           coherence=None) -> GeomHit:
     o, d = o.contiguous(), d.contiguous()
     lo, hi = _bounds(o, t_min, t_max)
     if geom.packed_tris.shape[0] <= DENSE_MAX_PRIMS:
@@ -275,27 +299,29 @@ def _trace(geom, o, d, t_min, t_max, any_hit, sort_bias=None) -> GeomHit:
                                                   geom.packed_tris))
         with torch.no_grad():
             return dense_sweep(o, d, lo, hi, geom.packed_tris, any_hit=True)
-    # the march and pair records are detached (the reference's _detached)
+    # the march, pair and packet records are detached (the reference's
+    # _detached)
     o, d, lo, hi = o.detach(), d.detach(), lo.detach(), hi.detach()
     strategy = resolved_strategy(geom)
     if strategy == "packet":
-        raise NotImplementedError(
-            "MCPT_TRAVERSAL=packet: the block-stack BVH traversal is "
-            "ROADMAP item 22"
-        )
+        return _intersect_packet(geom, o, d, lo, hi, any_hit)
     if strategy == "pairs":
         return _intersect_pairs(geom, o, d, lo, hi, any_hit)
     return _intersect_march_cuda(geom, o, d, lo, hi, any_hit,
-                                 sort_bias=sort_bias)
+                                 sort_bias=sort_bias, coherence=coherence)
 
 
-def intersect_closest(geom, o, d, t_min=None, t_max=None,
-                      sort_bias=None) -> GeomHit:
+def intersect_closest(geom, o, d, t_min=None, t_max=None, sort_bias=None,
+                      coherence=None) -> GeomHit:
     """Closest hit of every ray in [t_min, t_max); o, d: [N, 3].
-    `sort_bias`: optional [N] int coherence class (march route only)."""
-    return _trace(geom, o, d, t_min, t_max, False, sort_bias=sort_bias)
+    `sort_bias`: optional [N] int coherence class; `coherence`: optional
+    [N] origin chunk id, -1 unknown (both: march route only)."""
+    return _trace(geom, o, d, t_min, t_max, False, sort_bias=sort_bias,
+                  coherence=coherence)
 
 
-def intersect_any(geom, o, d, t_min=None, t_max=None) -> torch.Tensor:
-    """Occlusion by an opaque triangle; returns [N] bool."""
-    return _trace(geom, o, d, t_min, t_max, True).valid
+def intersect_any(geom, o, d, t_min=None, t_max=None,
+                  coherence=None) -> torch.Tensor:
+    """Occlusion by an opaque triangle; returns [N] bool.  `coherence`:
+    as intersect_closest's (march route only)."""
+    return _trace(geom, o, d, t_min, t_max, True, coherence=coherence).valid

@@ -373,6 +373,31 @@ def compile_scene(config: RendererConfig, device="cuda") -> SceneData:
     )
 
 
+def replicate_scene(scene, device):
+    """The scene with every tensor of every table on `device` and its
+    static fields as they are (the reference replicates the scene on every
+    device of the mesh, parallel/shard.py:52).  Nothing is committed
+    again; a tensor already on `device` is the same tensor.  A Camera, or
+    any tree of NamedTuples, dataclasses and tuples, replicates the same
+    way."""
+    device = torch.device(device)
+
+    def move(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return dataclasses.replace(x, **{
+                f.name: move(getattr(x, f.name))
+                for f in dataclasses.fields(x) if f.init})
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(move(v) for v in x))
+        if isinstance(x, tuple):
+            return tuple(move(v) for v in x)
+        return x
+
+    return move(scene)
+
+
 def _surface_kinds(col_kinds) -> tuple:
     """Texture kinds reachable from surface shading: those of every
     parameter column of the BSDF tables."""

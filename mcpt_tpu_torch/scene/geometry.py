@@ -1,12 +1,15 @@
-"""Device geometry: flat world-space triangle SoA and the march pack
-(counterpart of mcpt_tpu/scene/geometry.py::commit_geometry, :164-313).
+"""Device geometry: flat world-space triangle SoA, its BVH and the march
+pack (counterpart of mcpt_tpu/scene/geometry.py::commit_geometry,
+:164-313).
 
 All instances merge into one Morton-sorted, padded primitive array with a
 per-prim `inst_id` for BSDF binding; padding prims have zero edges and
-are never hit.  Scenes above DENSE_MAX_PRIMS traverse the march pack:
-the real prims grouped by a top-down binned-SAH partition into at most
-MCPT_MARCH_MAX_CHUNKS chunks of `march_leaf` prims, each with its AABB.
-The pack is built for every scene, as the reference builds it.
+are never hit.  The implicit BVH over that order (scene/bvh.py) keeps its
+node boxes for the packet walk (MCPT_TRAVERSAL=packet).  Scenes above
+DENSE_MAX_PRIMS traverse the march pack by default: the real prims
+grouped by a top-down binned-SAH partition (csrc/sah.c, native.py) into
+at most MCPT_MARCH_MAX_CHUNKS chunks of `march_leaf` prims, each with its
+AABB.  Both are built for every scene, as the reference builds them.
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mcpt_tpu_torch import native
 from mcpt_tpu_torch.ops.march_sweep import super_boxes
-from mcpt_tpu_torch.scene.bvh import morton_order
+from mcpt_tpu_torch.scene.bvh import build_bvh
 
 
 class Geometry(NamedTuple):
@@ -40,7 +44,8 @@ class Geometry(NamedTuple):
     inst_id: torch.Tensor  # [P] int32 (padding = 0; masked by hit validity)
     opaque: torch.Tensor   # [P] bool (blocks shadow rays; padding False)
     #: [P, 12] rows (p0.xyz, e1.xyz, e2.xyz, opaque, 0, 0) — the dense
-    #: sweep's triangle table (the reference keeps it as [leaves, leaf, 12])
+    #: sweep's triangle table; viewed as [n_pad_leaves, leaf_size, 12], the
+    #: BVH leaves' rows (the reference keeps it in that layout)
     packed_tris: torch.Tensor
     #: [Lm, ls, 12] march pack: chunk j's rows of packed_tris, channel 10 =
     #: the global sorted prim id as f32 (the reference's row), padding
@@ -62,6 +67,23 @@ class Geometry(NamedTuple):
     #: reference's BVH root, node_min[0] / node_max[0])
     bounds_min: torch.Tensor
     bounds_max: torch.Tensor
+    #: [M, 3] BVH node boxes, M = 2 * n_pad_leaves - 1 (scene/bvh.py):
+    #: node i's children are 2i+1, 2i+2; leaves from n_pad_leaves - 1
+    node_min: torch.Tensor
+    node_max: torch.Tensor
+
+    @property
+    def n_pad_leaves(self) -> int:
+        return (self.node_min.shape[0] + 1) // 2
+
+    @property
+    def leaf_size(self) -> int:
+        return self.packed_tris.shape[0] // self.n_pad_leaves
+
+    @property
+    def depth(self) -> int:
+        """log2(n_pad_leaves): the BVH's depth."""
+        return (self.n_pad_leaves - 1).bit_length()
 
     @property
     def n_march_leaves(self) -> int:
@@ -93,7 +115,8 @@ LEAF_SIZE = 4
 def _sah_chunks_py(cent, tmin, tmax, leaf, nbins=16):
     """Top-down binned-SAH partition of prims into chunks of <= `leaf`
     (mcpt_tpu/scene/geometry.py::_sah_chunks_py, copied verbatim so the
-    chunks and their DFS order are the reference's).
+    chunks and their DFS order are the reference's): the plain twin of
+    csrc/sah.c (native.sah_chunks), whose list is this one reversed.
 
     The march traversal's cost per ray is (chunks entered) x (sweep of
     `leaf` tris), so the split objective is the classic surface-area
@@ -168,17 +191,14 @@ def march_pack(pos_s: np.ndarray, packed: np.ndarray, p: int):
     default_leaf = 256 if p <= (1 << 16) else 64
     leaf = int(os.environ.get("MCPT_MARCH_LEAF", default_leaf))
     max_chunks = int(os.environ.get("MCPT_MARCH_MAX_CHUNKS", 2048))
-    chunks = _sah_chunks_py(s_cent, s_min, s_max, leaf)
+    # the chunks of csrc/sah.c, as the reference's commit_geometry takes
+    # them wherever gcc builds: _sah_chunks_py's chunks, listed left child
+    # first, the reverse of its list (ROADMAP section 3, R3).  A failed
+    # build raises.
+    chunks = native.sah_chunks(s_cent, s_min, s_max, leaf)
     while len(chunks) > max_chunks:
         leaf *= 2
-        chunks = _sah_chunks_py(s_cent, s_min, s_max, leaf)
-    # The reference's commit_geometry takes its chunks from the native
-    # mirror (mcpt_tpu/native/sah.c) wherever it builds: the same chunks,
-    # listed by their offset in the partitioned order — left child first
-    # — where the Python oracle lists them in stack-pop order, right child
-    # first.  The two orders are each other's reverse; the port keeps the
-    # native one, which commit_geometry produces (ROADMAP section 3, R3).
-    chunks.reverse()
+        chunks = native.sah_chunks(s_cent, s_min, s_max, leaf)
     n_march = len(chunks)
     march_tris = np.zeros((n_march, leaf, 12), np.float32)
     march_prim = np.zeros((n_march, leaf), np.int32)
@@ -197,9 +217,11 @@ def march_pack(pos_s: np.ndarray, packed: np.ndarray, p: int):
 
 
 def commit_geometry(tri_positions, tri_normals, tri_texcoords, tri_tangents,
-                    tri_inst_id, device, tri_opaque=None) -> Geometry:
+                    tri_inst_id, device, tri_opaque=None,
+                    leaf_size: int = LEAF_SIZE) -> Geometry:
     """Build the device Geometry from host triangle soup ([P,3,3] world
-    positions, optional [P,3,3] normals, [P,3,2] uvs, [P,3,3] tangents)."""
+    positions, optional [P,3,3] normals, [P,3,2] uvs, [P,3,3] tangents);
+    `leaf_size` prims a BVH leaf, which sets the padding."""
     pos = np.asarray(tri_positions, np.float32)
     p = pos.shape[0]
     inst = np.asarray(tri_inst_id, np.int32)
@@ -230,7 +252,8 @@ def commit_geometry(tri_positions, tri_normals, tri_texcoords, tri_tangents,
         bl = np.linalg.norm(bitangents, axis=-1, keepdims=True)
         bitangents = bitangents / np.maximum(bl, 1e-12)
 
-    order = morton_order(pos.min(axis=1), pos.max(axis=1), LEAF_SIZE)
+    bvh = build_bvh(pos.min(axis=1), pos.max(axis=1), leaf_size)
+    order = bvh.order
     real = order >= 0
 
     def pick(a):
@@ -277,4 +300,6 @@ def commit_geometry(tri_positions, tri_normals, tri_texcoords, tri_tangents,
         march_chunk_of_prim=dev(chunk_of_prim),
         bounds_min=dev(pos.min(axis=(0, 1))),
         bounds_max=dev(pos.max(axis=(0, 1))),
+        node_min=dev(bvh.node_min),
+        node_max=dev(bvh.node_max),
     )

@@ -62,7 +62,8 @@ from mcpt_tpu_torch.ops.dense_sweep import DenseClosestHit
 from mcpt_tpu_torch.ops.microfacet import average_fresnel_rgb
 from mcpt_tpu_torch.ops.traversal import DENSE_MAX_PRIMS
 from mcpt_tpu_torch.parallel.shard import (PARAM_FAMILIES, apply_params,
-                                           make_train_step, select_params)
+                                           make_mesh, make_train_step,
+                                           select_params)
 from mcpt_tpu_torch.render.camera import generate_rays
 from mcpt_tpu_torch.render.renderer import Renderer, render_pixels
 from mcpt_tpu_torch.scene.builtin import _xform
@@ -334,8 +335,10 @@ def test_train_step_chunks_equal_one_chunk():
     r = Renderer(to_torch_config(cfg), device="cpu")
     idx = torch.arange(144)
     target = torch.full((144, 3), 0.1)
-    out = [make_train_step(r.integrator, 2, PARAM_FAMILIES, grad_chunks=c)(
-        r.scene, r.camera, idx, target) for c in (1, 4)]
+    mesh = make_mesh(["cpu"])
+    out = [make_train_step(r.integrator, 2, mesh, PARAM_FAMILIES,
+                           grad_chunks=c)(r.scene, r.camera, idx, target)
+           for c in (1, 4)]
     (l1, g1), (l4, g4) = out
     assert float(l1) > 0
     np.testing.assert_allclose(float(l4), float(l1), rtol=1e-5)

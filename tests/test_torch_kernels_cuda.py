@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 dense sweep, K2 block march, K3 corridor,
-K4 pair sweep) against their plain PyTorch versions, on the card, and the
-large-scene routes against the plain per-lane march.  Every test here is
+K4 pair sweep, K5 packet walk) against their plain PyTorch versions, on
+the card, and the large-scene routes against the plain per-lane march.  Every test here is
 marked `cuda` and skips without a CUDA device;
 the file imports neither JAX nor mcpt_tpu, so it runs on a machine that
 has only PyTorch:
@@ -516,11 +516,12 @@ def test_pair_sweep_wrapper_checks_its_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["march", "pairs"])
+@pytest.mark.parametrize("route", ["march", "pairs", "packet"])
 @pytest.mark.parametrize("k", ["2", "8"])
 def test_large_scene_routes_match_plain_march(monkeypatch, route, k):
-    """The whole march and pair routes on the card against the per-lane
-    plain march (the oracle of both), with overflow forced at K=2."""
+    """The whole march, pair and packet routes on the card against the
+    per-lane plain march (the oracle of each), with the pair route's
+    overflow forced at K=2."""
     from chip_smoke import same_hits
     from mcpt_tpu_torch.ops import march_sweep as msw
     from mcpt_tpu_torch.ops.traversal import intersect_any, intersect_closest
@@ -537,6 +538,50 @@ def test_large_scene_routes_match_plain_march(monkeypatch, route, k):
               f"{route} closest")
     occ = intersect_any(g, o, d, lo, hi)
     assert torch.equal(occ, msw.march_sweep_plain(*plain, any_hit=True).valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("leaf_size", [1, 4, 8, 32])
+@pytest.mark.parametrize("n", [700, 5003])
+def test_packet_sweep_kernel_bit_equal_to_plain(n, leaf_size, any_hit):
+    """K5 visits the nodes its plain version visits, in its order (the
+    mean entry distance is summed in the same tree), so every output is
+    bit-equal, ties, any-hit t and dead lanes included: one ragged packet
+    and five, the last ragged."""
+    from mcpt_tpu_torch.ops import packet_sweep as pkt
+
+    dev = _cuda()
+    g = soup_geometry(3000, dev, seed=43, leaf_size=leaf_size)
+    o, d, lo, hi = soup_rays(n, dev, seed=44)
+    args = (o, d, lo, hi, g.node_min, g.node_max,
+            g.packed_tris.view(g.n_pad_leaves, g.leaf_size, 12))
+    before = pkt.launches
+    got = pkt.packet_sweep(*args, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert pkt.launches == before + 1
+    ref = pkt.packet_sweep_plain(*args, any_hit=any_hit)
+    assert bool(ref.valid.any()) and not bool(got.valid[::9].any())
+    for name in ("valid", "t", "prim", "v", "w", "inside"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+@pytest.mark.cuda
+def test_packet_sweep_wrapper_checks_its_inputs():
+    from mcpt_tpu_torch.ops import packet_sweep as pkt
+
+    dev = _cuda()
+    g = soup_geometry(300, dev, seed=45)
+    o, d, lo, hi = soup_rays(100, dev, seed=46)
+    tris = g.packed_tris.view(g.n_pad_leaves, g.leaf_size, 12)
+    with pytest.raises(ValueError, match="power of 2"):
+        pkt.packet_sweep(o, d, lo, hi, g.node_min[:-2], g.node_max[:-2],
+                         tris[:-1])
+    with pytest.raises(ValueError, match="leaves of"):
+        big = g.packed_tris.view(1, -1, 12)[:, :40].contiguous()
+        pkt.packet_sweep(o, d, lo, hi, g.node_min[:1], g.node_max[:1], big)
+    with pytest.raises(TypeError):
+        pkt.packet_sweep(o, d, lo, hi.double(), g.node_min, g.node_max, tris)
 
 
 @pytest.mark.cuda

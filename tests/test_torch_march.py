@@ -402,9 +402,30 @@ def test_traversal_knobs(monkeypatch):
 
 
 def test_packet_strategy_is_refused(monkeypatch):
+    """Named for the refusal it held until the packet route was ported
+    (ROADMAP item 22): MCPT_TRAVERSAL=packet now sends a geometry past
+    DENSE_MAX_PRIMS (lowered here, so that a small soup is past it) down
+    the packet walk, whose closest hits equal the march route's (t
+    bit-equal: the same arithmetic) and whose any-hit occlusion equals
+    it."""
+    from mcpt_tpu_torch.ops import packet_sweep as pkt
+
     _, tg = _soup(300, seed=14)
-    tg = tg._replace(packed_tris=torch.zeros((TT.DENSE_MAX_PRIMS + 4, 12)))
+    monkeypatch.setattr(TT, "DENSE_MAX_PRIMS", 64)
+    o, d, t_max = _rays(300, seed=14, dead_every=5)
+    o, d = torch.as_tensor(np.array(o)), torch.as_tensor(np.array(d))
+    t_max = torch.as_tensor(t_max)
+    march = [TT.intersect_closest(tg, o, d, t_max=t_max),
+             TT.intersect_any(tg, o, d, t_max=t_max)]
     monkeypatch.setenv("MCPT_TRAVERSAL", "packet")
-    o, d = torch.zeros((4, 3)), torch.ones((4, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 22"):
-        TT.intersect_closest(tg, o, d)
+    calls = []
+    sweep = pkt.packet_sweep
+    monkeypatch.setattr(pkt, "packet_sweep",
+                        lambda *a, **k: calls.append(1) or sweep(*a, **k))
+    hit = TT.intersect_closest(tg, o, d, t_max=t_max)
+    occ = TT.intersect_any(tg, o, d, t_max=t_max)
+    assert calls == [1, 1]
+    assert bool(hit.valid.any()) and not bool(hit.valid[::5].any())
+    assert torch.equal(hit.valid, march[0].valid)
+    assert torch.equal(hit.t, march[0].t)
+    assert torch.equal(occ, march[1])

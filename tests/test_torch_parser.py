@@ -479,7 +479,7 @@ def test_cornell_xml_compiles_to_the_reference_tables(cornell_xml, monkeypatch):
     ref = jax_scene_arrays(jscene)
     scene = compile_scene(cfg, device="cpu")
     got = torch_scene_arrays(scene)
-    assert len(got) == 106
+    assert len(got) == 108  # with the BVH's node_min and node_max
     for key, value in got.items():
         want = reference_leaf(ref, key)
         assert value.dtype == want.dtype, key

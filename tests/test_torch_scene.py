@@ -206,7 +206,7 @@ def test_compile_scene_leaves_equal(name):
     ref = jax_scene_arrays(jscene)
     scene = compile_scene(tcfg, device="cpu")
     got = torch_scene_arrays(scene)
-    assert len(got) == 106
+    assert len(got) == 108  # with the BVH's node_min and node_max
     for key, value in got.items():
         want = reference_leaf(ref, key)
         assert value.dtype == want.dtype, key
@@ -287,14 +287,36 @@ def test_camera_rays_match(res):
     ("mesh_packet_traversal", "item 22"),
 ])
 def test_out_of_slice_scenes_are_refused(monkeypatch, case, item):
-    # a mesh past DENSE_MAX_PRIMS renders through the march or the pair
-    # traversal; the reference's packet traversal is not ported
+    # named for the refusal it held until ROADMAP item 22 ported the
+    # packet traversal: a mesh past DENSE_MAX_PRIMS (lowered here, so that
+    # a small sphere is past it) with MCPT_TRAVERSAL=packet now takes the
+    # packet walk (K5's plain version on the CPU), whose closest hits are
+    # the march route's
+    from mcpt_tpu_torch.ops import packet_sweep as pkt
+    from mcpt_tpu_torch.ops import traversal as TT
+
     cfg = cornell_torch_config()
-    big = uv_sphere_mesh(92, 92)  # 16928 triangles
-    cfg.instances.append(tir.InstanceInfo(shape="mesh", mesh=big, id_bsdf=0))
+    sphere = uv_sphere_mesh(12, 12)  # 288 triangles
+    cfg.instances.append(tir.InstanceInfo(shape="mesh", mesh=sphere,
+                                          id_bsdf=0))
+    r = Renderer(cfg, device="cpu")
+    monkeypatch.setattr(TT, "DENSE_MAX_PRIMS", 64)
+    pix = torch.arange(8, 256, 16)  # the middle column
+    o, d = generate_rays(r.camera, pix, torch.full((16,), 0.5),
+                         torch.full((16,), 0.5))
+    march = TT.intersect_closest(r.scene.geom, o, d)
     monkeypatch.setenv("MCPT_TRAVERSAL", "packet")
-    with pytest.raises(NotImplementedError, match=item):
-        Renderer(cfg, device="cpu").render(spp=1)
+    assert TT.resolved_strategy(r.scene.geom) == "packet"
+    before = pkt.launches
+    calls = []
+    sweep = pkt.packet_sweep
+    monkeypatch.setattr(pkt, "packet_sweep",
+                        lambda *a, **k: calls.append(1) or sweep(*a, **k))
+    hit = TT.intersect_closest(r.scene.geom, o, d)
+    assert calls == [1] and pkt.launches == before  # the plain version
+    assert int(hit.valid.sum()) > 8 and item == "item 22" and case
+    assert torch.equal(hit.valid, march.valid)
+    assert torch.equal(hit.t, march.t) and torch.equal(hit.prim, march.prim)
 
 
 def test_cornell_with_sphere_fills_the_dense_sweep():
