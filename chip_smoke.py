@@ -48,14 +48,16 @@ Phases, one short line each:
                  it performs and for the full sweep), K3's and K4's times
                  before the redesign, and the most distinct chunks the pairs
                  of one warp (and of one 512-pair block) name
-  kernel-K5      the packet BVH walk against its plain version, closest hit
-                 and any-hit (valid and t bit-equal; prim, v, w, inside
-                 equal but on exact-t ties), on the march scene's 65536
-                 camera and first-bounce rays, the batched body's
-                 131072-lane input of the materials scene and 65536 random
-                 rays in a 16384-triangle soup, each in the packet route's
-                 order; times, and on the batched input the plain version's
-                 time and the bound from the walk's needed tests
+  kernel-K5      the per-ray BVH walk of the packet route against its plain
+                 version, closest hit and any-hit (all six outputs
+                 bit-equal, 0 ties), on the march scene's 65536 camera and
+                 first-bounce rays, the batched body's 131072-lane input of
+                 the materials scene and 65536 random rays in a
+                 16384-triangle soup, each in the packet route's order;
+                 times, the kernel's registers and spills (ptxas), node
+                 visits a ray, and on the batched input the plain
+                 version's time, the bound from the walk's own tests and
+                 the packet walk's time and bound before the redesign
   render-march   Renderer.render of the 51,236-triangle march scene at
                  512x512, 16 spp, depth 8 after a warm-up frame, through K2
                  and the batched regen body (closest hit only); then a 64x64
@@ -77,7 +79,7 @@ Phases, one short line each:
                  spp, depth 8 after a 1-spp warm-up frame, through the
                  batched body and K5 alone (no K1-K4 launch); then a 64x64,
                  1 spp, depth 3 card render held against the CPU's render
-                 of every 61st of its pixels (PACKET_CHECK)
+                 of every pixel (PACKET_CHECK)
   coh            the march scene at 64x64, 4 spp with MCPT_COH=1 through
                  the unbatched body, card vs CPU; the origin-chunk keys
                  must reach the march's ray order; the card image without
@@ -127,8 +129,9 @@ Phases, one short line each:
                  (K5's on the batched input),
                  and K1's shape sweep: every shape's device time at each
                  table size of kernel-K1 (the evidence for shape_for); then
-                 one tile-chunk of render-envmap's, render-lights' (at
-                 LIGHTS_PROFILE_SPP, 1 spp) and render-volcaustic's frames
+                 one tile-chunk of render-packet's, render-envmap's,
+                 render-lights' (at LIGHTS_PROFILE_SPP, 1 spp) and
+                 render-volcaustic's frames
                  under torch.profiler: device busy time, idle share against
                  the same tile-chunk unprofiled, device activities, K1
                  launches
@@ -520,12 +523,19 @@ def phase_env():
     return name, smi
 
 
+#: ptxas's register, shared-memory and spill lines of the build that made
+#: the library, one a kernel (build._ptxas_report), kept for the kernel
+#: phases
+PTXAS = []
+
+
 def phase_build():
     from mcpt_tpu_torch import build
 
     info = build.build()
     say(f"build: {'built' if info['built'] else 'cached'} "
         f"{os.path.relpath(info['path'], HERE)} in {info['seconds']:.2f} s")
+    PTXAS[:] = info["ptxas"]
     for line in info["ptxas"]:
         say(f"build: {line}")
     build.library()
@@ -1460,52 +1470,49 @@ def packet_args(g, o, d, lo, hi):
             g.node_max, g.packed_tris.view(g.n_pad_leaves, g.leaf_size, 12))
 
 
-def packet_same(got, ref, args, label):
-    """K5 against its plain version: valid and t bit-equal, closest hit and
-    any-hit; prim, v, w and inside equal, but where prim differs the
-    kernel's row must give the plain version's t bit for bit (an exact-t
-    tie, from a near/far swap).  Returns (hits, ties)."""
+def packet_same(got, ref, label):
+    """K5 against its plain version: the same per-ray walk and arithmetic,
+    so all six outputs bit-equal, closest hit and any-hit.  Returns
+    (hits, ties): ties, rays whose prim differs, must be 0."""
     import torch
 
-    from mcpt_tpu_torch.ops.intersect import intersect_triangle
-
-    for name in ("valid", "t"):
+    m = ref.valid
+    ties = int((m & (got.prim != ref.prim)).sum())
+    for name in ("valid", "t", "prim", "v", "w", "inside"):
         if not torch.equal(getattr(got, name), getattr(ref, name)):
             raise AssertionError(f"{label}: {name} differs from the plain "
-                                 "version")
-    m = ref.valid
-    diff = m & (got.prim != ref.prim)
-    same = m & ~diff
-    for name in ("v", "w", "inside"):
-        if not torch.equal(getattr(got, name)[same], getattr(ref, name)[same]):
-            raise AssertionError(f"{label}: {name} differs at the same prim")
-    if bool(diff.any()):
-        rows = args[6].reshape(-1, 12)[got.prim[diff].long()]
-        o, d, lo = args[0][diff], args[1][diff], args[2][diff]
-        hit, t, _, _, _ = intersect_triangle(
-            o, d, rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], lo,
-            torch.full_like(lo, 3.4e38))
-        if not (bool(hit.all()) and torch.equal(t, ref.t[diff])):
-            raise AssertionError(f"{label}: prim differs beyond exact ties")
-    return int(m.sum()), int(diff.sum())
+                                 f"version ({ties} prim ties)")
+    return int(m.sum()), ties
 
 
 #: bytes of one BVH node's box (min and max, 3 floats each)
 NODE_BYTES = 6 * 4
+#: K5 before its redesign as a per-ray walk (commit b845e5c; NVIDIA H100
+#: 80GB HBM3, 700 W): the 1024-lane packet walk on the batched input,
+#: between events and its device time, and its bound from the packet
+#: walk's tests (530.1M slab and 916.0M triangle tests of live lanes).
+#: Printed beside this run's numbers, not in the kernels line
+K5_BEFORE_MS = 23.94
+K5_BEFORE_DEVICE_MS = 23.71
+K5_PACKET_BOUND_MS = 0.8437
 
 
 def k5_bound(args, visits):
-    """K5's bound on one input, from what the plain walk needed: 27
-    operations per slab test and 46 per triangle test of a live lane;
-    bytes: each ray read once, each output written once, and once each
-    node box and each leaf row (ROW_BYTES) that some packet visited."""
+    """K5's bound on one input, from what the per-ray walk needs
+    (packet_sweep_plain's visits): 27 operations per slab test (two an
+    internal node a ray visits) and 46 per triangle test (a visited
+    leaf's rows; any-hit: its opaque rows); bytes: each ray read once,
+    each output written once, and once each box that some ray tested
+    (both children of every internal node some ray visited) and each row
+    of every leaf some ray visited."""
     n = len(args[0])
     nodes = visits["nodes"]
     n_leaves = args[6].shape[0]
     leaf_size = args[6].shape[1]
+    internal = int(nodes[:n_leaves - 1].sum())
     leaves = int(nodes[n_leaves - 1:].sum())
     ops = SLAB_OPS * visits["slab_tests"] + K1_OPS_PER_PAIR * visits["tri_tests"]
-    nbytes = (n * 8 * 4 + n * HIT_BYTES + int(nodes.sum()) * NODE_BYTES
+    nbytes = (n * 8 * 4 + n * HIT_BYTES + 2 * internal * NODE_BYTES
               + leaves * leaf_size * ROW_BYTES)
     return bound(ops, nbytes)
 
@@ -1515,13 +1522,16 @@ def phase_kernel_k5(dev):
     scene's 65536 camera and first-bounce rays, on the batched body's
     131072-lane input of the materials scene (batched_input), and on
     65536 random rays in a random soup of 16384 triangles; each in the
-    packet route's order.  Times by events, the plain version's and the
-    bound on the batched input (the render-packet frame's shape)."""
+    packet route's order.  Times by events; on the batched input the
+    plain version's time, the bound and node visits a ray."""
     import torch
 
     from mcpt_tpu_torch.ops import packet_sweep as pkt
     from mcpt_tpu_torch.scene.builtin import cornell_mesh_march
 
+    regs = [line for line in PTXAS if line.startswith("packet_kernel")]
+    say("kernel-K5: ptxas " + ("; ".join(regs) if regs else "no report "
+                               "beside the library (build.PTXAS_NAME)"))
     scene, cam = _scene(cornell_mesh_march, dev)
     g = scene.geom
     sets = [(label, g, packet_args(g, *rays))
@@ -1544,15 +1554,16 @@ def phase_kernel_k5(dev):
             if label == "batched" and not any_hit:
                 plain_ms = a.elapsed_time(b)
             got = pkt.packet_sweep(*args, any_hit=any_hit)
-            n_hit, n_tie = packet_same(got, ref, args,
+            n_hit, n_tie = packet_same(got, ref,
                                        f"K5 {label} any_hit={any_hit}")
             line.append(f"{'any' if any_hit else 'closest'} hits {n_hit} "
                         f"ties {n_tie}")
         times[label] = cuda_ms(lambda: pkt.packet_sweep(*args), reps=10)
         say(f"kernel-K5 {label}: {len(args[0])} rays "
             f"({int((args[3] > args[2]).sum())} live) x {geom.n_pad_leaves} "
-            f"leaves of {geom.leaf_size} (depth {geom.depth}): match plain "
-            f"({', '.join(line)}); {times[label]:.4f} ms")
+            f"leaves of {geom.leaf_size} (depth {geom.depth}): all six "
+            f"outputs bit-equal to plain ({', '.join(line)}); "
+            f"{times[label]:.4f} ms")
         if label == "batched":
             batched = (args, geom)
 
@@ -1560,14 +1571,18 @@ def phase_kernel_k5(dev):
     visits = {}
     pkt.packet_sweep_plain(*args, visits=visits)
     bound_ms, bound_by = k5_bound(args, visits)
+    walked = visits["internal"] + visits["leaf"]
+    walked = walked[args[3] > args[2]].double()
     ms = times["batched"]
     say(f"kernel-K5 batched: {ms:.4f} ms (plain {plain_ms:.1f} ms), bound "
         f"{bound_ms:.4f} ms by {bound_by}: {visits['slab_tests']} slab tests, "
         f"{visits['tri_tests']} triangle tests, {int(visits['nodes'].sum())} "
-        f"of {geom.node_min.shape[0]} nodes visited; node visits a packet "
-        f"{int(visits['internal'].min())}-{int(visits['internal'].max())} "
-        f"internal, {int(visits['leaf'].min())}-{int(visits['leaf'].max())} "
-        f"leaf")
+        f"of {geom.node_min.shape[0]} nodes visited; node visits a live ray "
+        f"min {int(walked.min())}, median {float(walked.median()):.0f}, max "
+        f"{int(walked.max())} (internal {int(visits['internal'].sum())}, "
+        f"leaf {int(visits['leaf'].sum())} in all); before the redesign "
+        f"{K5_BEFORE_MS} ms between events (device {K5_BEFORE_DEVICE_MS} "
+        f"ms), bound {K5_PACKET_BOUND_MS} ms by the packet walk's tests")
     rec = {
         "name": "packet_sweep", "route": "cuda",
         "source": "mcpt_tpu_torch/csrc/packet_sweep.cu",
@@ -1581,7 +1596,10 @@ def phase_kernel_k5(dev):
         "ms_by_input": times,
         "visits": {"slab_tests": visits["slab_tests"],
                    "tri_tests": visits["tri_tests"],
-                   "nodes": int(visits["nodes"].sum())},
+                   "nodes": int(visits["nodes"].sum()),
+                   "per_live_ray": [int(walked.min()),
+                                    float(walked.median()),
+                                    int(walked.max())]},
     }
     time_on_device(rec, "device_ms", lambda: pkt.packet_sweep(*args),
                    "packet_kernel", reps=5)
@@ -1746,7 +1764,8 @@ def profile_run(fn, label, smi):
     say(f"{label} wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
         f"{1 - busy / wall:.3f}, {len(events)} device activities, K1 "
         f"launches {counts['K1'] - counts['K1_any']} closest + "
-        f"{counts['K1_any']} any-hit, K2 {counts['K2']}, on {smi}")
+        f"{counts['K1_any']} any-hit, K2 {counts['K2']}, K5 {counts['K5']}, "
+        f"on {smi}")
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1 - busy / wall, "device_activities": len(events),
             "counts": counts}
@@ -2046,25 +2065,25 @@ def phase_pairs_by_march(dev, smi, pairs_wall):
         f"the {faster} route is faster here")
 
 
-#: render-packet's card-vs-CPU check: the CPU's plain packet walk takes
-#: seconds a trace at this scene's 16384 leaves, so the CPU renders every
-#: 61st pixel of the 64x64 frame, at 1 spp and depth 3 (PERF.md §4)
-PACKET_CHECK = dict(res=64, spp=1, depth=3, stride=61)
+#: render-packet's card-vs-CPU check: every pixel of a 64x64 frame, at 1
+#: spp and depth 3 (PERF.md §4)
+PACKET_CHECK = dict(res=64, spp=1, depth=3, stride=1)
 
 
 def phase_render_packet(dev, smi):
     """render-packet: the march scene with MCPT_TRAVERSAL=packet through
     the batched body and K5, 512x512, 16 spp, depth 8 after a 1-spp
-    warm-up frame, no launch of K2-K4; then a 64x64 card render against
-    the CPU's render of a spread subset of its pixels (PACKET_CHECK): a
-    pixel's value does not depend on the other pixels of its tile."""
+    warm-up frame, no launch of K1-K4; then a 64x64 card render against
+    the CPU's render of the pixels PACKET_CHECK names: a pixel's value
+    does not depend on the other pixels of its tile.  Returns the
+    counts, the wall and the renderer."""
     import torch
 
     from mcpt_tpu_torch.render.renderer import Renderer, render_tile_regen
     from mcpt_tpu_torch.scene.builtin import cornell_mesh_march
 
     with knobs({"MCPT_TRAVERSAL": "packet"}):
-        counts, wall, _ = phase_render_route(
+        counts, wall, r_pkt = phase_render_route(
             dev, smi, "render-packet", cornell_mesh_march, "packet", ("K5",),
             against_cpu=False, body="batched", warmup_spp=1)
         if counts["K2"] or counts["K3"] or counts["K4"] or counts["K1"]:
@@ -2084,14 +2103,15 @@ def phase_render_packet(dev, smi):
     a = a[idx.numpy()]
     close = np.isclose(a, b, rtol=1e-3, atol=1e-4).all(axis=-1)
     say(f"render-packet: {c['res']}x{c['res']} {c['spp']}spp d{c['depth']} "
-        f"card vs cpu on {len(idx)} pixels (one in {c['stride']}; the CPU "
-        f"took {cpu_s:.1f} s): {close.mean() * 100:.2f}% within rtol 1e-3 "
+        f"card vs cpu on {len(idx)} pixels (one in {c['stride']}; the "
+        f"CPU's render took {cpu_s:.1f} s): {close.mean() * 100:.2f}% within "
+        f"rtol 1e-3 "
         f"atol 1e-4, {int((a == b).all(axis=-1).sum())} bit-equal; means "
         f"card {np.round(a.mean(axis=0), 5).tolist()}, cpu "
         f"{np.round(b.mean(axis=0), 5).tolist()}")
     if close.mean() < 0.99 or not a.mean() > 0:
         raise AssertionError("render-packet: card and CPU renders disagree")
-    return counts, wall
+    return counts, wall, r_pkt
 
 
 def phase_coh(dev):
@@ -2638,7 +2658,7 @@ def main():
     begin("pairs-by-march")
     phase_pairs_by_march(dev, smi, pairs_wall)
     begin("render-packet")
-    c_pkt, _ = phase_render_packet(dev, smi)
+    c_pkt, _, r_pkt = phase_render_packet(dev, smi)
     k5["launches"] = c_pkt["K5"]
     begin("coh")
     phase_coh(dev)
@@ -2659,6 +2679,9 @@ def main():
     phase_sharded(dev, smi)
     begin("device-times")
     phase_device_times(k1, k2, k3, k4, k5)
+    with knobs({"MCPT_TRAVERSAL": "packet"}):
+        tile_chunk_profile(r_pkt, "render-packet", smi)
+    del r_pkt
     for r, label, spp in ((r_env, "render-envmap", SPP_CHUNK),
                           (r_lights, "render-lights", LIGHTS_PROFILE_SPP),
                           (r_vol, "render-volcaustic", SPP_CHUNK)):

@@ -8,8 +8,10 @@ plain `nvcc` build of a C-ABI file takes seconds instead of minutes.)
 
 The library lands in `_build/<hash>/libmcpt_kernels.so`, where <hash>
 covers the sources and the flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing else is written there.  A failed build
-raises with nvcc's stderr; nothing falls back to the plain versions.
+unchanged one is reused.  Beside it, `ptxas.txt` keeps the assembler's
+register and spill report of that build.  Nothing else is written there.
+A failed build raises with nvcc's stderr; nothing falls back to the plain
+versions.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "libmcpt_kernels.so"
+PTXAS_NAME = "ptxas.txt"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,7 +51,7 @@ SIGNATURES = {
     "mcpt_corridor": [_P] * 6 + [_I] * 3 + [_P] * 3,
     "mcpt_corridor_tile": [],
     "mcpt_pair_sweep": [_P] * 7 + [_I] * 5 + [_P] * 7,
-    "mcpt_packet_sweep": [_P] * 7 + [_I] * 4 + [_P] * 7,
+    "mcpt_packet_sweep": [_P] * 6 + [_I] * 4 + [_P] * 7,
 }
 
 
@@ -97,11 +100,15 @@ def build() -> dict:
     """Compile the kernels unless an up-to-date library exists.
 
     Returns {"path", "seconds", "built", "ptxas"} — `ptxas` holds the
-    assembler's register, shared-memory and spill report of this build,
-    one line a kernel (_ptxas_report)."""
+    assembler's register, shared-memory and spill report of the build
+    that made the library (kept beside it), one line a kernel
+    (_ptxas_report)."""
     out = library_path()
+    report = out.with_name(PTXAS_NAME)
     if out.exists():
-        return {"path": str(out), "seconds": 0.0, "built": False, "ptxas": []}
+        kept = report.read_text().splitlines() if report.exists() else []
+        return {"path": str(out), "seconds": 0.0, "built": False,
+                "ptxas": kept}
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"tmp{os.getpid()}"
     t0 = time.perf_counter()
@@ -120,6 +127,7 @@ def build() -> dict:
             failed = (cmd, proc.returncode, err)
     objs = [obj for _, obj, _ in jobs]
     tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    tmp_report = out.with_name(f"{PTXAS_NAME}.{tag}")
     try:
         if failed is None:
             cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
@@ -130,9 +138,12 @@ def build() -> dict:
             cmd, code, err = failed
             print(err, flush=True)
             raise RuntimeError(f"nvcc failed (exit {code}): {' '.join(cmd)}")
+        tmp_report.write_text("".join(f"{ln}\n" for ln in ptxas))
+        os.replace(tmp_report, report)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
+        tmp_report.unlink(missing_ok=True)
         for obj in objs:
             obj.unlink(missing_ok=True)
     return {"path": str(out), "seconds": time.perf_counter() - t0,

@@ -5,8 +5,9 @@
 // rounds on its own in the same order, and the results agree bit for bit:
 //   * moller_trumbore: ops/intersect.py::intersect_triangle, dots written
 //     ((x + y) + z);
-//   * chunk_entry: ops/intersect.py::safe_rcp + intersect_aabb as
-//     ops/march_sweep.py::chunk_entry uses them.
+//   * slab: ops/intersect.py::intersect_aabb, the one copy of the slab
+//     test, on which K2's and K3's chunk_entry (ops/march_sweep.py::
+//     chunk_entry) and K5's node test build.
 #pragma once
 
 #include <math.h>
@@ -68,22 +69,37 @@ __device__ __forceinline__ bool moller_trumbore(const Ray& r, const float* tri,
          (t >= tmin) && (t < t_best) && (det_abs > 1e-20f);
 }
 
-// Entry distance of a ray (origin o, reciprocal direction rcp) into the box
-// [bmin, bmax] within [tmin, tmax], clamped at 0; +inf when the slab test
-// fails or the entry is beyond 1e30 (empty chunks are parked at 3e37).
-// Inputs hold no NaN, so fminf/fmaxf agree with torch.minimum/maximum.
+// The slab test of ops/intersect.py::intersect_aabb: the ray (origin o,
+// reciprocal direction rx, ry, rz) against the box [x0 y0 z0, x1 y1 z1]
+// within [tmin, tmax].  True when the ray enters it, its entry distance
+// (not clamped) in t_enter.  Inputs hold no NaN, so fminf/fmaxf agree with
+// torch.minimum/maximum.
+__device__ __forceinline__ bool slab(const Ray& o, float rx, float ry, float rz,
+                                     float tmin, float tmax, float x0, float y0,
+                                     float z0, float x1, float y1, float z1,
+                                     float& t_enter) {
+  const float lx = (x0 - o.ox) * rx, hx = (x1 - o.ox) * rx;
+  const float ly = (y0 - o.oy) * ry, hy = (y1 - o.oy) * ry;
+  const float lz = (z0 - o.oz) * rz, hz = (z1 - o.oz) * rz;
+  const float t_near = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
+  const float t_far = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
+  t_enter = fmaxf(t_near, tmin);
+  return t_enter <= fminf(t_far, tmax);
+}
+
+// Entry distance of a ray into the box [bmin, bmax] within [tmin, tmax]
+// (ops/intersect.py::safe_rcp + intersect_aabb as ops/march_sweep.py::
+// chunk_entry uses them), clamped at 0; +inf when the slab test fails or
+// the entry is beyond 1e30 (empty chunks are parked at 3e37).
 __device__ __forceinline__ float chunk_entry(const Ray& o, float rx, float ry,
                                              float rz, float tmin, float tmax,
                                              const float* bmin,
                                              const float* bmax) {
-  const float lx = (bmin[0] - o.ox) * rx, hx = (bmax[0] - o.ox) * rx;
-  const float ly = (bmin[1] - o.oy) * ry, hy = (bmax[1] - o.oy) * ry;
-  const float lz = (bmin[2] - o.oz) * rz, hz = (bmax[2] - o.oz) * rz;
-  const float t_near = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
-  const float t_far = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
-  const float t_enter = fmaxf(t_near, tmin);
-  const float t_exit = fminf(t_far, tmax);
-  if (!(t_enter <= t_exit) || !(t_enter < 1e30f)) return INFINITY;
+  float t_enter;
+  if (!slab(o, rx, ry, rz, tmin, tmax, bmin[0], bmin[1], bmin[2], bmax[0],
+            bmax[1], bmax[2], t_enter) ||
+      !(t_enter < 1e30f))
+    return INFINITY;
   return t_enter > 0.f ? t_enter : 0.f;
 }
 

@@ -1,39 +1,41 @@
-"""Kernel K5: the packet BVH walk, and its plain version.
+"""Kernel K5: the BVH walk of the packet route, and its plain version.
 
-K5 replaces no Pallas kernel.  It is the reference's XLA traversal
-mcpt_tpu/ops/traversal.py::_intersect_packet (:454-623, PACKET_BLOCK at
-:356), written by hand because eager torch cannot run that loop at full
-width: one node visit is ~60 launches and a host test of the stack, a
-packet visits thousands of nodes, and a frame traces hundreds of times.
-The kernel is CUDA C++ (csrc/packet_sweep.cu); `packet_sweep` launches it
-for CUDA tensors and runs `packet_sweep_plain` for CPU tensors.  It never
-falls back from one to the other.
+K5 replaces no Pallas kernel.  It serves the reference's packet route,
+mcpt_tpu/ops/traversal.py::_intersect_packet (:454-623), which walks the
+implicit BVH in packets of 1024 rays with one shared stack: the TPU's
+stand-in for per-lane stacks (its docstring, :455-461), and so no part of
+K5's contract.  K5 walks the same tree one ray a thread, in the order of
+the reference's per-lane walk, mcpt_tpu/ops/traversal.py::_traverse
+(:60-148, its leaf loop _leaf_intersect :36-57).  It is written by hand
+because eager torch cannot run that loop at full width: a node visit is
+tens of launches and a host test of the stacks, and a ray visits up to
+hundreds of nodes.  The kernel is CUDA C++ (csrc/packet_sweep.cu);
+`packet_sweep` launches it for CUDA tensors and runs `packet_sweep_plain`
+for CPU tensors.  It never falls back from one to the other.
 
 Contract: rays o, d [N,3] f32, t_min, t_max [N] f32, in the caller's
-order (the traversal sorts them by coherence keys first); the BVH's node
-boxes node_min, node_max [M,3] f32 (scene/bvh.py: node i's children are
-2i+1 and 2i+2, the leaves start at n_pad_leaves - 1); the leaves' rows
-tris [n_pad_leaves, leaf_size, 12] f32 (p0.xyz, e1.xyz, e2.xyz, opaque,
-..), the packed triangle table viewed by leaf.  Returns a GeomHit whose
-prim indexes the packed table.
+order (the packet route sorts them by coherence keys first, so that the
+rays of a warp walk alike); the BVH's node boxes node_min, node_max [M,3]
+f32 (scene/bvh.py: node i's children are 2i+1 and 2i+2, the leaves start
+at n_pad_leaves - 1); the leaves' rows tris [n_pad_leaves, leaf_size, 12]
+f32 (p0.xyz, e1.xyz, e2.xyz, opaque, ..), the packed triangle table viewed
+by leaf.  Returns a GeomHit whose prim indexes the packed table.
 
-The walk (the reference's): the rays go in packets of PACKET_BLOCK, each
-with one stack of node ids shared by its lanes, starting at the root.  At
-a leaf every lane of the packet tests the leaf's rows against its best t
-(the lowest row wins among equal t; a hit must beat the best t strictly;
-any-hit keeps opaque rows only).  At an internal node every live lane
-(t_min < best t, and in any-hit mode no hit yet) slab-tests both
-children against [t_min, best t]; a child that some lane enters is
-pushed, and where both are, the far one first, so that the near one —
-the smaller mean entry distance over the lanes that enter it — is
-visited next.  The mean's sum over the packet's lanes is taken in one
-fixed order, a halving tree within each warp of 32 lanes and then across
-the 32 warps (`_tree_sum`), which the kernel repeats with warp shuffles:
-so the kernel visits the nodes the plain version visits, in its order,
-and every output is bit-equal.  Against the reference, whose XLA sum has
-another order, a near/far swap changes only the visit order: closest-hit
-t is the same, prim may differ on exact-t ties, and any-hit t (the first
-hits found, refined by later leaves) may differ where valid does not.
+The walk (`_traverse`'s, per ray): a stack of node ids, depth + 2 deep,
+holding the root.  Pop a node.  At a leaf, test its rows in index order
+against [t_min, best t], keeping a hit only below the best t, so the
+lowest row wins among equal t (any-hit: opaque rows only, and the ray's
+walk ends after the leaf where it found a hit).  At an internal node,
+slab-test both children against [t_min, best t]; where both are entered,
+push the far child and then the near one (the near one is c0 when
+t0 <= t1), otherwise the one that is entered.  Two culls that change no
+output: a child whose box is inverted (min.x > max.x: the padding
+subtrees, whose rows are zero and never hit) counts as a miss, and a
+dead ray (t_min >= t_max) walks nothing.  So every output is the one
+`_traverse` gives on the same tree, but where XLA's contracted
+multiply-adds move a t by an ulp (tests/test_torch_packet.py), and the
+kernel, which repeats this walk's arithmetic op for op and follows the
+same per-ray order, is bit-equal to it in all six outputs.
 """
 
 from __future__ import annotations
@@ -43,12 +45,8 @@ import torch
 from mcpt_tpu_torch.ops.dense_sweep import GeomHit, _check
 from mcpt_tpu_torch.ops.intersect import intersect_aabb, intersect_triangle, safe_rcp
 
-#: rays a packet (a CUDA block of as many threads), as the reference's
-#: PACKET_BLOCK
-PACKET_BLOCK = 1024
-
-#: the most rows a leaf may hold (the kernel stages a leaf's rows in
-#: shared memory) and the deepest stack the kernel keeps (depth + 2)
+#: the most rows a leaf may hold and the deepest stack the kernel keeps
+#: (depth + 2)
 MAX_LEAF = 32
 MAX_STACK = 40
 
@@ -58,209 +56,113 @@ launches = 0
 any_hit_launches = 0
 
 
-#: walk steps a CUDA graph of the plain version holds (packet_sweep_plain)
-GRAPH_STEPS = 32
-
-
-def _tree_sum(x):
-    """Sum over the last dimension of PACKET_BLOCK values in the kernel's
-    order: [..., 1024] -> [...], a halving tree over each warp's 32 lanes
-    (lane i adds lane i + 16, then i + 8, ...), then the same tree over the
-    32 warp sums."""
-    x = x.reshape(*x.shape[:-1], 32, 32)
-    for off in (16, 8, 4, 2, 1):
-        x = x[..., :off] + x[..., off:2 * off]
-    x = x[..., 0]
-    for off in (16, 8, 4, 2, 1):
-        x = x[..., :off] + x[..., off:2 * off]
-    return x[..., 0]
-
-
-class _Walk:
-    """The state of every packet's walk, [G, ...] tensors updated in place
-    by `step`, which advances every packet whose stack is not empty by one
-    node visit and leaves the others as they are: a step has no host sync
-    and fixed shapes, so that a run of steps can be replayed as a CUDA
-    graph."""
-
-    def __init__(self, o, d, t_min, t_max, node_min, node_max, tris,
-                 any_hit, count):
-        n = o.shape[0]
-        dev = o.device
-        b = PACKET_BLOCK
-        self.g = g = max(1, -(-n // b))
-        pad = g * b - n
-
-        def padded(x, cols=None):
-            shape = (pad,) if cols is None else (pad, cols)
-            x = torch.cat([x, x.new_zeros(shape)]) if pad else x
-            return x.reshape((g, b) if cols is None else (g, b, cols))
-
-        # padding lanes are dead: t_min = t_max = 0 and d = 0 (never a hit)
-        self.o, self.d = padded(o, 3), padded(d, 3)
-        self.tmin, self.t_best = padded(t_min), padded(t_max).clone()
-        self.rcp = safe_rcp(self.d)
-        self.node_min, self.node_max, self.tris = node_min, node_max, tris
-        self.any_hit, self.count = any_hit, count
-        self.n_leaves, self.leaf_size = tris.shape[0], tris.shape[1]
-        self.s = (self.n_leaves - 1).bit_length() + 2
-        self.prim = torch.zeros((g, b), dtype=torch.int32, device=dev)
-        self.v = torch.zeros((g, b), dtype=torch.float32, device=dev)
-        self.w = torch.zeros_like(self.v)
-        self.inside = torch.zeros((g, b), dtype=torch.bool, device=dev)
-        self.valid = torch.zeros_like(self.inside)
-        self.stack = torch.zeros((g, self.s), dtype=torch.int64, device=dev)
-        self.sp = torch.ones(g, dtype=torch.int64, device=dev)
-        zeros = dict(dtype=torch.int64, device=dev)
-        self.n_int = torch.zeros(g, **zeros)
-        self.n_leaf = torch.zeros(g, **zeros)
-        self.seen = torch.zeros(node_min.shape[0], **zeros)
-        self.n_slab = torch.zeros((), **zeros)
-        self.n_tri = torch.zeros((), **zeros)
-        self.n = n
-
-    def step(self):
-        first_leaf = self.n_leaves - 1
-        act = self.sp > 0
-        node = self.stack.gather(1, (self.sp - 1).clamp(min=0)[:, None])[:, 0]
-        sp = self.sp - act.long()
-        is_leaf = act & (node >= first_leaf)
-        is_int = act & (node < first_leaf)
-        if self.count:
-            self.n_int.add_(is_int.long())
-            self.n_leaf.add_(is_leaf.long())
-            self.seen.index_add_(0, node, act.long())
-        # on the CPU a host test skips the half of the step no packet
-        # needs; on the card the step stays free of syncs, for the graph
-        cpu = self.o.device.type == "cpu"
-        if not cpu or bool(is_leaf.any()):
-            self._leaf(node, is_leaf)
-        if not cpu or bool(is_int.any()):
-            sp = self._internal(node, is_int, sp)
-        self.sp.copy_(sp)
-
-    def _leaf(self, node, is_leaf):
-        """Every lane of a packet at a leaf tests its rows against its
-        best t."""
-        first_leaf = self.n_leaves - 1
-        leaf = (node - first_leaf).clamp(0, self.n_leaves - 1)
-        rows = self.tris[leaf][:, None]  # [G, 1, ls, 12]
-        hit, t, v, w, det_inv = intersect_triangle(
-            self.o[:, :, None], self.d[:, :, None], rows[..., 0:3],
-            rows[..., 3:6], rows[..., 6:9], self.tmin[:, :, None],
-            self.t_best[:, :, None])
-        opaque = rows[..., 9] > 0.5
-        if self.any_hit:
-            hit = hit & opaque
-        t = torch.where(hit, t, torch.full_like(t, float("inf")))
-        tk, k = t.min(dim=2)  # first index among equal minima
-        take = torch.isfinite(tk) & (tk < self.t_best) & is_leaf[:, None]
-        if self.count:
-            live = (self.tmin < self.t_best) & is_leaf[:, None]
-            n_rows = torch.full_like(leaf, self.leaf_size)
-            if self.any_hit:
-                live = live & ~self.valid
-                n_rows = opaque[:, 0].sum(dim=1)
-            self.n_tri.add_((live.sum(dim=1) * n_rows).sum())
-
-        def at_k(x):
-            return x.gather(2, k[..., None])[..., 0]
-
-        self.t_best.copy_(torch.where(take, tk, self.t_best))
-        self.prim.copy_(torch.where(
-            take, (leaf[:, None] * self.leaf_size + k).to(torch.int32),
-            self.prim))
-        self.v.copy_(torch.where(take, at_k(v), self.v))
-        self.w.copy_(torch.where(take, at_k(w), self.w))
-        self.inside.copy_(torch.where(take, at_k(det_inv) < 0.0, self.inside))
-        self.valid.copy_(self.valid | take)
-
-    def _internal(self, node, is_int, sp):
-        """A packet at an internal node slab-tests both children and
-        pushes them as the reference does; returns the stack pointers."""
-        m = self.node_min.shape[0]
-        c0 = (2 * node + 1).clamp(max=m - 1)
-        c1 = (2 * node + 2).clamp(max=m - 1)
-        live = (self.tmin < self.t_best) & is_int[:, None]
-        if self.any_hit:
-            live = live & ~self.valid
-        kids = torch.stack([c0, c1], dim=1)  # [G, 2]
-        h, te = intersect_aabb(
-            self.o[:, None], self.rcp[:, None], self.node_min[kids][:, :, None],
-            self.node_max[kids][:, :, None], self.tmin[:, None],
-            self.t_best[:, None])  # [G, 2, 1024]
-        h = h & live[:, None]
-        cnt = h.sum(dim=2)
-        mean = (_tree_sum(torch.where(h, te, torch.zeros_like(te)))
-                / torch.clamp(cnt.to(torch.float32), min=1.0))
-        any0, any1 = cnt[:, 0] > 0, cnt[:, 1] > 0
-        near_is_0 = mean[:, 0] <= mean[:, 1]
-        near = torch.where(near_is_0, c0, c1)
-        far = torch.where(near_is_0, c1, c0)
-        any_near = torch.where(near_is_0, any0, any1)
-        any_far = torch.where(near_is_0, any1, any0)
-        push1 = is_int & (any0 | any1)
-        push2 = is_int & any_near & any_far
-        first = torch.where(push2, far, torch.where(any_near, near, far))
-        for push, value in ((push1, first), (push2, near)):
-            i = sp.clamp(max=self.s - 1)[:, None]
-            self.stack.scatter_(1, i, torch.where(
-                push, value, self.stack.gather(1, i)[:, 0])[:, None])
-            sp = sp + push.long()
-        if self.count:
-            self.n_slab.add_(2 * live.sum())
-        return sp
-
-    def run(self):
-        """Step until every stack is empty: on the card, GRAPH_STEPS steps
-        at a time as one CUDA graph (a step that finds an empty stack
-        changes nothing), since a step is ~100 small launches."""
-        if self.o.device.type != "cuda":
-            while bool((self.sp > 0).any()):
-                self.step()
-            return
-        with torch.cuda.device(self.o.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(2):  # warm-up before the capture: real steps
-                    self.step()
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(GRAPH_STEPS):
-                    self.step()
-            while bool((self.sp > 0).any()):
-                graph.replay()
-
-    def hit(self) -> GeomHit:
-        def out(x):
-            return x.reshape(-1)[:self.n]
-
-        return GeomHit(valid=out(self.valid), t=out(self.t_best),
-                       prim=out(self.prim), v=out(self.v), w=out(self.w),
-                       inside=out(self.inside))
+def child_boxes(node_min, node_max):
+    """[M // 2, 12] f32: internal node i's children's boxes as one 48-byte
+    record, min and max of child 2i+1, then of 2i+2, so that the kernel
+    reads them as three 16-byte loads."""
+    return torch.cat([node_min[1::2], node_max[1::2], node_min[2::2],
+                      node_max[2::2]], dim=1).contiguous()
 
 
 def packet_sweep_plain(o, d, t_min, t_max, node_min, node_max, tris,
                        any_hit: bool = False, visits: dict | None = None
                        ) -> GeomHit:
-    """The packet walk in plain PyTorch: every packet takes one step of
-    its own walk per step of the loop (a [G, S] stack, one [G] pointer),
-    which equals running the packets one after another, since they share
-    nothing.  `visits`, if given, receives what the walk needed, for the
-    bound: the node visits of each packet ("internal", "leaf": [G] int64),
-    the slab tests and triangle tests of live lanes ("slab_tests",
-    "tri_tests": ints; any-hit tests opaque rows only) and the nodes some
-    packet visited ("nodes": [M] bool)."""
-    walk = _Walk(o, d, t_min, t_max, node_min, node_max, tris, any_hit,
-                 visits is not None)
-    walk.run()
-    if visits is not None:
-        visits.update(internal=walk.n_int, leaf=walk.n_leaf,
-                      slab_tests=int(walk.n_slab), tri_tests=int(walk.n_tri),
-                      nodes=walk.seen > 0)
-    return walk.hit()
+    """The per-ray walk in plain PyTorch: an [N, S] stack and an [N]
+    pointer; each step pops one node of every ray whose stack is not
+    empty (those rays taken by index), until every stack is empty.
+    `visits`, if given, receives what the walk needed, for the bound: the
+    node visits of each ray ("internal", "leaf": [N] int64), the slab and
+    triangle tests ("slab_tests": two an internal visit; "tri_tests": a
+    leaf's rows a leaf visit, its opaque rows in any-hit mode: ints) and
+    the nodes some ray visited ("nodes": [M] bool)."""
+    n, dev = o.shape[0], o.device
+    n_leaves, leaf_size = tris.shape[0], tris.shape[1]
+    first_leaf = n_leaves - 1
+    rcp = safe_rcp(d)
+    inverted = node_min[:, 0] > node_max[:, 0]
+    t_best = t_max.clone()
+    prim = torch.zeros(n, dtype=torch.int32, device=dev)
+    v = torch.zeros(n, dtype=torch.float32, device=dev)
+    w = torch.zeros_like(v)
+    inside = torch.zeros(n, dtype=torch.bool, device=dev)
+    valid = torch.zeros_like(inside)
+    # the root (node 0) in slot 0 of every live ray's stack
+    stack = torch.zeros((n, (n_leaves - 1).bit_length() + 2),
+                        dtype=torch.int64, device=dev)
+    sp = (t_min < t_max).long()
+    count = visits is not None
+    if count:
+        n_int = torch.zeros(n, dtype=torch.int64, device=dev)
+        n_leaf = torch.zeros_like(n_int)
+        seen = torch.zeros(node_min.shape[0], dtype=torch.bool, device=dev)
+        n_tri = torch.zeros((), dtype=torch.int64, device=dev)
+    while True:
+        idx = (sp > 0).nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        top = sp[idx] - 1
+        node = stack[idx, top]
+        sp[idx] = top
+        at_leaf = node >= first_leaf
+        if count:
+            n_int[idx] += (~at_leaf).long()
+            n_leaf[idx] += at_leaf.long()
+            seen[node] = True
+
+        # leaves: each ray tests its leaf's rows against its best t
+        lanes, leaf = idx[at_leaf], node[at_leaf] - first_leaf
+        if lanes.numel():
+            rows = tris[leaf]  # [L, ls, 12]
+            hit, t, tv, tw, det_inv = intersect_triangle(
+                o[lanes, None], d[lanes, None], rows[..., 0:3],
+                rows[..., 3:6], rows[..., 6:9], t_min[lanes, None],
+                t_best[lanes, None])
+            if any_hit:
+                opaque = rows[..., 9] > 0.5
+                hit = hit & opaque
+                if count:
+                    n_tri += opaque.sum()
+            elif count:
+                n_tri += lanes.numel() * leaf_size
+            t = torch.where(hit, t, torch.full_like(t, float("inf")))
+            tk, k = t.min(dim=1)  # the first row among equal minima
+            take = torch.isfinite(tk) & (tk < t_best[lanes])
+            won, k = lanes[take], k[take, None]
+            t_best[won] = tk[take]
+            prim[won] = (leaf[take] * leaf_size + k[:, 0]).to(torch.int32)
+            v[won] = tv[take].gather(1, k)[:, 0]
+            w[won] = tw[take].gather(1, k)[:, 0]
+            inside[won] = det_inv[take].gather(1, k)[:, 0] < 0.0
+            valid[won] = True
+            if any_hit:
+                sp[won] = 0  # the first hit ends the ray's walk
+
+        # internal nodes: slab-test both children, push far then near
+        lanes, node = idx[~at_leaf], node[~at_leaf]
+        if lanes.numel():
+            c0, c1 = 2 * node + 1, 2 * node + 2
+            lo, hi = t_min[lanes], t_best[lanes]
+            h0, t0 = intersect_aabb(o[lanes], rcp[lanes], node_min[c0],
+                                    node_max[c0], lo, hi)
+            h1, t1 = intersect_aabb(o[lanes], rcp[lanes], node_min[c1],
+                                    node_max[c1], lo, hi)
+            h0 = h0 & ~inverted[c0]
+            h1 = h1 & ~inverted[c1]
+            both = h0 & h1
+            near_is_0 = t0 <= t1
+            near = torch.where(near_is_0, c0, c1)
+            far = torch.where(near_is_0, c1, c0)
+            first = torch.where(both, far, torch.where(h0, c0, c1))
+            top = sp[lanes]
+            for push, value in ((h0 | h1, first), (both, near)):
+                stack[lanes[push], top[push]] = value[push]
+                top = top + push.long()
+            sp[lanes] = top
+    if count:
+        visits.update(internal=n_int, leaf=n_leaf,
+                      slab_tests=2 * int(n_int.sum()), tri_tests=int(n_tri),
+                      nodes=seen)
+    return GeomHit(valid=valid, t=t_best, prim=prim, v=v, w=w, inside=inside)
 
 
 def packet_sweep(o, d, t_min, t_max, node_min, node_max, tris,
@@ -293,6 +195,10 @@ def packet_sweep(o, d, t_min, t_max, node_min, node_max, tris,
                          f"deeper than the kernel's {MAX_STACK}")
     if n_leaves * leaf_size >= 2**31 // 12:
         raise ValueError("packet_sweep: the leaves overflow int32 indexing")
+    if tris.data_ptr() % 16:
+        raise ValueError("packet_sweep: tris must be 16-byte aligned (rows "
+                         "are read as float4)")
+    boxes = child_boxes(node_min, node_max)
 
     from mcpt_tpu_torch.build import library
 
@@ -307,10 +213,9 @@ def packet_sweep(o, d, t_min, t_max, node_min, node_max, tris,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mcpt_packet_sweep(
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-            node_min.data_ptr(), node_max.data_ptr(), tris.data_ptr(), n,
-            n_leaves, leaf_size, int(any_hit), t.data_ptr(), prim.data_ptr(),
-            v.data_ptr(), w.data_ptr(), inside.data_ptr(), valid.data_ptr(),
-            stream,
+            boxes.data_ptr(), tris.data_ptr(), n, n_leaves, leaf_size,
+            int(any_hit), t.data_ptr(), prim.data_ptr(), v.data_ptr(),
+            w.data_ptr(), inside.data_ptr(), valid.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"packet_sweep kernel launch failed: cudaError {err}")

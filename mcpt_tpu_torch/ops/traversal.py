@@ -13,7 +13,8 @@ Scenes of at most DENSE_MAX_PRIMS padded prims go to the dense sweep
   per-ray min, and the block march over the rays whose corridor
   overflows, compacted first;
 * ``packet`` (MCPT_TRAVERSAL=packet only) — rays sorted by coherence
-  keys, then the packet walk over the BVH (kernel K5), then the inverse
+  keys, then the BVH walk (kernel K5: one ray a thread, in the order of
+  the reference's per-lane walk _traverse), then the inverse
   permutation.
 
 Every kernel runs for CUDA tensors and its plain version for CPU
@@ -46,7 +47,7 @@ __all__ = [
 #: scenes up to this many padded primitives use the dense sweep
 DENSE_MAX_PRIMS = 16384
 
-#: MCPT_TRAVERSAL values; "packet" is the block-stack BVH walk, which
+#: MCPT_TRAVERSAL values; "packet" is the BVH walk (kernel K5), which
 #: only MCPT_TRAVERSAL chooses
 STRATEGIES = ("auto", "march", "pairs", "packet")
 
@@ -274,10 +275,10 @@ def _intersect_pairs(geom, o, d, t_min, t_max, any_hit) -> GeomHit:
 
 
 def _intersect_packet(geom, o, d, t_min, t_max, any_hit) -> GeomHit:
-    """The packet walk (kernel K5) over rays in the order of a stable
-    sort of their coherence keys (MCPT_MARCH_SORT; no dead-lane bit and
-    no class, as the reference's jnp.argsort), so that each packet of
-    PACKET_BLOCK rays shares subtrees; the hits go back to ray order."""
+    """The packet route: the BVH walk (kernel K5) over rays in the order
+    of a stable sort of their coherence keys (MCPT_MARCH_SORT; no
+    dead-lane bit and no class, as the reference's jnp.argsort), so that
+    the rays of a warp walk alike; the hits go back to ray order."""
     order = torch.sort(_ray_sort_keys(geom, o, d), stable=True)[1]
     tris = geom.packed_tris.view(geom.n_pad_leaves, geom.leaf_size, 12)
     hit = pkt.packet_sweep(o[order], d[order], t_min[order], t_max[order],

@@ -7,14 +7,16 @@ Primitives are sorted by the 30-bit Morton code of their AABB centroids
 node i's children are 2i+1 and 2i+2, the leaves start at n_pad_leaves - 1
 and each covers `leaf_size` consecutive sorted primitives.  Node boxes are
 built bottom-up, one vectorised union per level.  The topology is
-implicit, so the packet walk (ops/packet_sweep.py, kernel K5) reads only
+implicit, so the BVH walk (ops/packet_sweep.py, kernel K5) reads only
 the node boxes and the leaves' rows of the packed triangle table.
 
-Padding leaves get inverted boxes (min 3e38, max -3e38).  Under the
-min/max slab test such a box is a slab of every t on each axis, so every
-ray enters it: padding subtrees are visited, and their zero rows never
-hit.  That costs work, not results; the port keeps the reference's boxes
-so that its walk visits the nodes the reference's does.
+Padding leaves get inverted boxes (min 3e38, max -3e38), and so does
+every node above padding alone.  Under the min/max slab test such a box
+is a slab of every t on each axis, so every ray would enter it, and find
+only zero rows, which never hit.  The port keeps the reference's boxes
+(equal field for field); its walk counts an inverted box (min.x > max.x)
+as a miss, which changes no hit and no order among the real nodes, and
+so visits no padding node.
 """
 
 from __future__ import annotations

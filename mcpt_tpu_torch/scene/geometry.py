@@ -5,8 +5,8 @@ pack (counterpart of mcpt_tpu/scene/geometry.py::commit_geometry,
 All instances merge into one Morton-sorted, padded primitive array with a
 per-prim `inst_id` for BSDF binding; padding prims have zero edges and
 are never hit.  The implicit BVH over that order (scene/bvh.py) keeps its
-node boxes for the packet walk (MCPT_TRAVERSAL=packet).  Scenes above
-DENSE_MAX_PRIMS traverse the march pack by default: the real prims
+node boxes for the BVH walk of the packet route (MCPT_TRAVERSAL=packet).
+Scenes above DENSE_MAX_PRIMS traverse the march pack by default: the real prims
 grouped by a top-down binned-SAH partition (csrc/sah.c, native.py) into
 at most MCPT_MARCH_MAX_CHUNKS chunks of `march_leaf` prims, each with its
 AABB.  Both are built for every scene, as the reference builds them.

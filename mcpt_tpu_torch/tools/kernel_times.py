@@ -1,13 +1,16 @@
-"""K1's, K3's and K4's times on the card by two measures, for any checkout.
+"""K1's, K3's, K4's and K5's times on the card by two measures, for any
+checkout.
 
     python3 mcpt_tpu_torch/tools/kernel_times.py [--root DIR] [--reps 20]
 
 Times the dense sweep (K1) on chip_smoke.py's input (a) (65536 random rays,
 every 16th dead, x 16384 random triangles), the corridor (K3) on the pairs
 scene's first-bounce rays (chip_smoke.camera_and_bounce) and the pair
-sweep (K4) on their pairs (ops/traversal.py::pair_inputs), each through
-its wrapper (K1 and K4 in closest-hit and in any-hit mode), by two
-measures: the median time between CUDA events
+sweep (K4) on their pairs (ops/traversal.py::pair_inputs) and the BVH
+walk (K5) on the batched body's 131072-lane input of the materials scene
+in the packet route's order (chip_smoke.batched_input, packet_args), each
+through its wrapper (K1 and K4 in closest-hit and in any-hit mode), by
+two measures: the median time between CUDA events
 around one call (chip_smoke.cuda_ms, which also counts the wrapper's host
 time) and the median device time of one launch (chip_smoke.kernel_ms).
 `--root` imports mcpt_tpu_torch from another checkout (a `git archive` of
@@ -47,6 +50,7 @@ def main(argv=None) -> int:
     import mcpt_tpu_torch
     from mcpt_tpu_torch import build
     from mcpt_tpu_torch.ops import dense_sweep as ds
+    from mcpt_tpu_torch.ops import packet_sweep as pkt
     from mcpt_tpu_torch.ops import pair_sweep as psw
     from mcpt_tpu_torch.ops.math import MAX_FLOAT
     from mcpt_tpu_torch.ops.traversal import pair_inputs
@@ -75,6 +79,11 @@ def main(argv=None) -> int:
         lambda: psw.corridor(ob, db, lob, hib, g.march_min, g.march_max, k),
         "corridor_kernel", f"{len(ob)} bounce rays x {g.n_march_leaves} "
         f"chunks, K={k}")}
+    _, g_b, args_b = cs.batched_input(dev)
+    kargs = cs.packet_args(g_b, *args_b[:4])
+    calls["K5"] = (lambda: pkt.packet_sweep(*kargs), "packet_kernel",
+                   f"{len(kargs[0])} batched lanes x {g_b.n_pad_leaves} "
+                   f"leaves of {g_b.leaf_size}")
     for any_hit in (False, True):
         mode = " any-hit" if any_hit else ""
         calls["K1" + mode] = (

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1 dense sweep, K2 block march, K3 corridor,
-K4 pair sweep, K5 packet walk) against their plain PyTorch versions, on
+K4 pair sweep, K5 per-ray BVH walk) against their plain PyTorch versions, on
 the card, and the large-scene routes against the plain per-lane march.  Every test here is
 marked `cuda` and skips without a CUDA device;
 the file imports neither JAX nor mcpt_tpu, so it runs on a machine that
@@ -15,6 +15,7 @@ import torch
 from chip_smoke import (CORRIDOR_CASES, random_rays, random_tris,
                         soup_geometry, soup_rays)
 from mcpt_tpu_torch.ops import dense_sweep as ds
+from mcpt_tpu_torch.ops import packet_sweep as pkt
 
 
 @pytest.mark.cuda
@@ -540,36 +541,54 @@ def test_large_scene_routes_match_plain_march(monkeypatch, route, k):
     assert torch.equal(occ, msw.march_sweep_plain(*plain, any_hit=True).valid)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("any_hit", [False, True])
-@pytest.mark.parametrize("leaf_size", [1, 4, 8, 32])
-@pytest.mark.parametrize("n", [700, 5003])
-def test_packet_sweep_kernel_bit_equal_to_plain(n, leaf_size, any_hit):
-    """K5 visits the nodes its plain version visits, in its order (the
-    mean entry distance is summed in the same tree), so every output is
-    bit-equal, ties, any-hit t and dead lanes included: one ragged packet
-    and five, the last ragged."""
-    from mcpt_tpu_torch.ops import packet_sweep as pkt
-
-    dev = _cuda()
-    g = soup_geometry(3000, dev, seed=43, leaf_size=leaf_size)
-    o, d, lo, hi = soup_rays(n, dev, seed=44)
-    args = (o, d, lo, hi, g.node_min, g.node_max,
-            g.packed_tris.view(g.n_pad_leaves, g.leaf_size, 12))
+def _packet_same(args, any_hit):
+    """One K5 launch against the plain per-ray walk: all six outputs
+    bit-equal.  Returns the plain version's hits."""
     before = pkt.launches
     got = pkt.packet_sweep(*args, any_hit=any_hit)
     torch.cuda.synchronize()
     assert pkt.launches == before + 1
     ref = pkt.packet_sweep_plain(*args, any_hit=any_hit)
-    assert bool(ref.valid.any()) and not bool(got.valid[::9].any())
     for name in ("valid", "t", "prim", "v", "w", "inside"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("leaf_size", [1, 4, 8, 32])
+@pytest.mark.parametrize("n", [700, 5003])
+def test_packet_sweep_kernel_bit_equal_to_plain(n, leaf_size, any_hit):
+    """K5 walks each ray in its plain version's order with its arithmetic,
+    so every output is bit-equal, prim included (no tie can go another
+    way), any-hit t and dead lanes too: a few blocks and many, the last
+    ragged."""
+    dev = _cuda()
+    g = soup_geometry(3000, dev, seed=43, leaf_size=leaf_size)
+    o, d, lo, hi = soup_rays(n, dev, seed=44)
+    args = (o, d, lo, hi, g.node_min, g.node_max,
+            g.packed_tris.view(g.n_pad_leaves, g.leaf_size, 12))
+    ref = _packet_same(args, any_hit)
+    assert bool(ref.valid.any()) and not bool(ref.valid[::9].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_packet_sweep_kernel_deep_tree(any_hit):
+    """A BVH of depth 14 (60000 prims in leaves of 4: 15000 real leaves of
+    16384, the rest padding) and 5003 rays (a ragged last block): all six
+    outputs bit-equal to the plain version."""
+    dev = _cuda()
+    g = soup_geometry(60000, dev, seed=47, leaf_size=4)
+    assert g.depth == 14
+    o, d, lo, hi = soup_rays(5003, dev, seed=48)
+    args = (o, d, lo, hi, g.node_min, g.node_max,
+            g.packed_tris.view(g.n_pad_leaves, g.leaf_size, 12))
+    assert bool(_packet_same(args, any_hit).valid.any())
 
 
 @pytest.mark.cuda
 def test_packet_sweep_wrapper_checks_its_inputs():
-    from mcpt_tpu_torch.ops import packet_sweep as pkt
-
     dev = _cuda()
     g = soup_geometry(300, dev, seed=45)
     o, d, lo, hi = soup_rays(100, dev, seed=46)
@@ -582,6 +601,10 @@ def test_packet_sweep_wrapper_checks_its_inputs():
         pkt.packet_sweep(o, d, lo, hi, g.node_min[:1], g.node_max[:1], big)
     with pytest.raises(TypeError):
         pkt.packet_sweep(o, d, lo, hi.double(), g.node_min, g.node_max, tris)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(tris.numel() + 1, device=dev)[1:]
+        pkt.packet_sweep(o, d, lo, hi, g.node_min, g.node_max,
+                         flat.view(tris.shape))
 
 
 @pytest.mark.cuda

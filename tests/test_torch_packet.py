@@ -4,17 +4,22 @@ native SAH partition, against mcpt_tpu.
 
 * build_bvh and the Geometry's BVH fields equal the reference's
   commit_geometry field for field (numpy on both sides): exact.
-* packet_sweep_plain against the reference's _intersect_packet and its
+* packet_sweep_plain, the per-ray walk, against the reference's per-lane
+  walk _traverse (its order), its packet walk _intersect_packet and its
   brute-force oracle on tests/test_bvh.py's random soups (with exact
-  duplicates, so ties) at leaf sizes 1, 2, 4 and 8: valid and inside
-  equal; t within rtol 1e-5, atol 1e-5 (XLA contracts multiply-adds into
-  FMAs, torch rounds each op); prim equal but on exact-t ties, where the
-  port's prim must reproduce the reference's t; v and w within atol 1e-4,
-  the FMA ulps of their numerators being scaled by 1/|det| (1.2e-5 seen
-  on a triangle of |det| = 0.0043).  Against the port's own dense sweep,
-  which does the same arithmetic: valid and t bit-equal, v, w and inside
-  bit-equal where prim is.  Any-hit: valid equal (its t is the first
-  hits found, which a near/far swap in another sum order changes).
+  duplicates, so ties; a ragged tail of rays and dead rays) at leaf
+  sizes 1, 2, 4 and 8: valid and inside equal; t within rtol 1e-5, atol
+  1e-5 (XLA contracts multiply-adds into FMAs, torch rounds each op);
+  prim equal but on exact-t ties, where the port's prim must reproduce
+  the reference's t; v and w within atol 1e-4, the FMA ulps of their
+  numerators being scaled by 1/|det| (1.2e-5 seen on a triangle of
+  |det| = 0.0043).  Against _traverse the same holds in any-hit mode
+  (the same per-lane order finds the same first hits); against the
+  packet walk, whose visit order is another, any-hit compares valid.
+  Against the port's own dense sweep, which does the same arithmetic:
+  valid and t bit-equal, v, w and inside bit-equal where prim is.
+* The walk visits no padding node (inverted boxes), though _traverse,
+  which visits them, finds the same hits.
 * A MCPT_TRAVERSAL=packet render of tests/test_batched_regen.py::
   make_mesh_box_scene (its floor turned to face the light, so that NEE
   lights it) matches the reference's packet render per pixel.
@@ -25,6 +30,7 @@ native SAH partition, against mcpt_tpu.
 * csrc/sah.c's chunk list is the Python version's reversed.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -135,7 +141,7 @@ def test_bvh_equals_reference(leaf_size):
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("leaf_size", LEAF_SIZES)
 def test_packet_plain_matches_reference(leaf_size, any_hit):
-    """1500 rays: two packets, the second ragged."""
+    """1500 rays: two of the reference's packets, the second ragged."""
     jg, tg = _soup(300, seed=22, leaf_size=leaf_size, opaque_frac=0.7)
     o, d, t_max = _rays(1500, seed=23)
     ref = JT._intersect_packet(jg, jnp.asarray(o), jnp.asarray(d), 1e-4,
@@ -176,27 +182,72 @@ def test_packet_plain_any_hit_is_occlusion():
     assert bool((tg.opaque[got.prim[m].long()]).all())
 
 
+def _traverse(jg, o, d, t_max, any_hit):
+    """The reference's per-lane walk, t_min 1e-4, as tests/test_bvh.py
+    runs it."""
+    return jax.jit(lambda g, o, d, hi: JT._traverse(g, o, d, 1e-4, hi,
+                                                    any_hit=any_hit))(
+        jg, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("leaf_size", LEAF_SIZES)
+def test_packet_plain_matches_traverse(leaf_size, any_hit):
+    """The per-ray walk is _traverse's, padding culled: 1500 rays (a
+    ragged tail past any block of 128 or 256, every seventh dead), closest
+    hit and any-hit, under _hold_against_reference's rule."""
+    jg, tg = _soup(300, seed=22, leaf_size=leaf_size, opaque_frac=0.7)
+    o, d, t_max = _rays(1500, seed=23)
+    ref = _traverse(jg, o, d, t_max, any_hit)
+    got = _packet(tg, o, d, t_max, any_hit)
+    assert not bool(got.valid[::7].any())
+    _hold_against_reference(got, ref, o, d, tg)
+    if any_hit:
+        assert bool((tg.opaque[got.prim[got.valid].long()]).all())
+
+
 def test_packet_visits_and_tree_sum():
-    """The plain walk reports its visits, and _tree_sum adds in the
-    kernel's order: a halving tree over each warp, then over the warps."""
-    x = torch.arange(1024, dtype=torch.float32)[None] * 0.1
-    want = x.view(32, 32)
-    for off in (16, 8, 4, 2, 1):
-        want = want[:, :off] + want[:, off:2 * off]
-    want = want[:, 0]
-    for off in (16, 8, 4, 2, 1):
-        want = want[:off] + want[off:2 * off]
-    assert torch.equal(pkt._tree_sum(x), want)
-    _, tg = _soup(300, seed=26, leaf_size=4)
+    """Named for the packet walk's fixed-order sum (_tree_sum), which the
+    per-ray walk no longer needs.  The walk reports its visits a ray, a
+    BVH with padding leaves (300 prims in leaves of 4: 75 real of 128)
+    has no padding node visited, and its hits still equal those of
+    _traverse, which walks the padding subtrees."""
+    jg, tg = _soup(300, seed=26, leaf_size=4)
     o, d, t_max = _rays(2100, seed=27)
     visits = {}
-    pkt.packet_sweep_plain(
+    got = pkt.packet_sweep_plain(
         torch.as_tensor(o), torch.as_tensor(d), torch.full((2100,), 1e-4),
         torch.as_tensor(t_max), tg.node_min, tg.node_max,
         tg.packed_tris.view(tg.n_pad_leaves, tg.leaf_size, 12), visits=visits)
-    assert visits["internal"].shape == (3,)
-    assert bool((visits["leaf"] > 0).all())
-    assert bool((visits["internal"] >= visits["leaf"] - 1).all())
+    inverted = tg.node_min[:, 0] > tg.node_max[:, 0]
+    assert tg.n_pad_leaves == 128 and int(inverted.sum()) > 53
+    assert not bool((visits["nodes"] & inverted).any())
+    assert int(visits["nodes"].sum()) > 100
+    assert visits["internal"].shape == visits["leaf"].shape == (2100,)
+    dead = torch.as_tensor(t_max) <= 1e-4
+    assert not bool(visits["internal"][dead].any() | visits["leaf"][dead].any())
+    walked = visits["leaf"] > 0
+    assert bool(walked[~dead].float().mean() > 0.25)
+    # a leaf is reached through the depth internal nodes above it
+    assert bool((visits["internal"][walked] >= tg.depth).all())
+    assert visits["slab_tests"] == 2 * int(visits["internal"].sum())
+    assert visits["tri_tests"] == tg.leaf_size * int(visits["leaf"].sum())
+    ref = _traverse(jg, o, d, t_max, False)
+    _hold_against_reference(got, ref, o, d, tg)
+
+
+def test_packet_child_boxes_record():
+    """K5 reads internal node i's children's boxes as one contiguous
+    48-byte record: min and max of child 2i+1, then of 2i+2."""
+    _, tg = _soup(300, seed=28, leaf_size=4)
+    boxes = pkt.child_boxes(tg.node_min, tg.node_max)
+    m = tg.node_min.shape[0]
+    assert boxes.shape == (m // 2, 12) and boxes.is_contiguous()
+    i = torch.arange(m // 2)
+    assert torch.equal(boxes[:, 0:3], tg.node_min[2 * i + 1])
+    assert torch.equal(boxes[:, 3:6], tg.node_max[2 * i + 1])
+    assert torch.equal(boxes[:, 6:9], tg.node_min[2 * i + 2])
+    assert torch.equal(boxes[:, 9:12], tg.node_max[2 * i + 2])
 
 
 def _lit_mesh_box(**kw):
