@@ -4,9 +4,12 @@
 
 The reference's flags with the same meanings and file naming (`-i -o -w
 -h -s`, apps/main.cpp:98-199, plus `--tile --depth-max --progressive
---checkpoint --serve --set`), and one more: `--device`, default `cuda`.
-The port's entry points run on the card unless the caller asks for the
-CPU (`--device cpu`); without CUDA a run on the default device raises.
+--checkpoint --serve --set`), and two more: `--device`, default `cuda`,
+and `--trace-out`.  The port's entry points run on the card unless the
+caller asks for the CPU (`--device cpu`); without CUDA a run on the
+default device raises.
+`--trace-out FILE.json` writes where the run's time went (spans and
+counters, mcpt_tpu_torch/trace.py) as Chrome trace-event JSON.
 `--progressive N` writes a snapshot every N spp, named
 `{stem}_{done:05d}spp{ext}`; `--checkpoint FILE.npz` keeps the film and
 the samples done (keys `film`, `spp_done`), and a rerun resumes from it.
@@ -15,6 +18,7 @@ the samples done (keys `film`, `spp_done`), and a rerun resumes from it.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -59,10 +63,17 @@ def main(argv=None):
         help="torch device to render on (default cuda; cpu runs the "
              "kernels' plain versions)",
     )
+    ap.add_argument(
+        "--trace-out", default=None, metavar="FILE.json",
+        help="write the run's spans and counters (scene set-up, calls, "
+             "tile-chunks, traversals, host waits) as Chrome trace-event "
+             "JSON, for Perfetto or chrome://tracing",
+    )
     args = ap.parse_args(argv)
 
     import torch
 
+    from mcpt_tpu_torch import trace
     from mcpt_tpu_torch.render.renderer import Renderer
     from mcpt_tpu_torch.scene.parser import load_config
     from mcpt_tpu_torch.utils.image import write_exr, write_png
@@ -73,6 +84,9 @@ def main(argv=None):
             f"--device {args.device}: CUDA is not available; pass "
             "--device cpu to render on the CPU")
 
+    if args.trace_out:
+        trace.reset()
+        trace.enable()
     t0 = time.time()
     config = load_config(args.input)
     if args.width:
@@ -152,6 +166,11 @@ def main(argv=None):
           f"({n_pix * config.camera.spp / dt / 1e6:.2f} Msamples/s)")
     save(img, output)
     print(f"[info] wrote '{output}'")
+    if args.trace_out:
+        trace.disable()
+        with open(args.trace_out, "w") as fh:
+            json.dump(trace.chrome_trace(trace.snapshot()), fh)
+        print(f"[info] wrote the trace '{args.trace_out}'")
     return 0
 
 

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from mcpt_tpu_torch import trace
 from mcpt_tpu_torch.models import bsdf as bsdfs
 from mcpt_tpu_torch.models import emitter as emitters
 from mcpt_tpu_torch.models import texture as textures
@@ -59,6 +60,30 @@ from mcpt_tpu_torch.scene.ir import EmitterType
 #: them it passes unoccluded, the reference's bounded-depth deviation.
 #: Read once, as the reference reads it; tests set the attribute
 SHADOW_ALPHA_K = max(1, int(os.environ.get("MCPT_SHADOW_ALPHA_K", "4")))
+
+#: while tracing is on (mcpt_tpu_torch/trace.py): the wavefront loops'
+#: bodies run (here and in volpath.py), the lanes they carried, and the
+#: lanes with work at each loop test
+iterations = 0
+lanes = 0
+live_lanes = 0
+
+
+def more_work(mask, site: str) -> bool:
+    """A wavefront loop's test: whether any lane of `mask` has work left
+    (one reduction and one copy to the host).  While tracing, it reads
+    the count of those lanes in its place, inside a `sync` span, and
+    counts the iteration the test lets run."""
+    if not trace.on:
+        return bool(mask.any())
+    global iterations, lanes, live_lanes
+    with trace.span("sync", site=site):
+        live = int(mask.sum())
+    live_lanes += live
+    if live:
+        iterations += 1
+        lanes += mask.shape[0]
+    return live > 0
 
 
 def nee_rr_tau() -> float:
@@ -661,7 +686,8 @@ def shade(scene: SceneData, integ, o, d, seed, differentiable: bool = False):
     # origin-chunk keys of the rays that start at the current hit (MCPT_COH)
     coh = _origin_chunk(scene, ghit) if _use_origin_chunk(scene) else None
     dep = 1
-    while dep < integ.depth_max and (differentiable or bool(alive.any())):
+    while dep < integ.depth_max and (differentiable
+                                      or more_work(alive, "path.shade")):
         seed, alive, beta = _roulette(integ, seed, torch.tensor(dep), alive,
                                       beta)
         seed, xi_nee = rng.random_floats(seed, n_nee)
@@ -732,7 +758,7 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
     use_coh = _use_origin_chunk(scene)
     coh = torch.full((n,), -1, dtype=torch.int32, device=dev)
 
-    while bool((alive | (work_k < spp)).any()):
+    while more_work(alive | (work_k < spp), "path.regen"):
         # --- regenerate: dead lanes with samples left start the next one
         fresh = ~alive & (work_k < spp)
         L = _fold(integ, L, L_samp, fresh)
@@ -847,7 +873,7 @@ def _shade_regen_batched(scene: SceneData, integ, camera, reg: _Regen):
     sh_dist = torch.zeros((q_n, n), **f32)     # 0 = no query
     sh_pend = torch.zeros((q_n, n, 3), **f32)  # beta * contrib
 
-    while bool((alive | fold_pend).any()):
+    while more_work(alive | fold_pend, "path.batched"):
         # --- 1. ONE closest-hit trace of [continuation | shadow_1..Q];
         # coherence classes camera 0 / bounce 1 / shadow 2 + q, clipped to
         # the class field's 2 bits

@@ -44,6 +44,7 @@ from mcpt_tpu_torch.integrators.path import (
     _where3,
     apply_opacity,
     interpolate_hit,
+    more_work,
     nee_draw_count,
     nee_rr_tau,
     shadow_occluded,
@@ -239,7 +240,8 @@ def shade(scene: SceneData, integ, o, d, seed, differentiable: bool = False):
     n_nee = nee_draw_count(scene)
     pdf_mis = torch.full((n,), 1e12, dtype=torch.float32, device=o.device)
     dep = 1
-    while dep < integ.depth_max and (differentiable or bool(alive.any())):
+    while dep < integ.depth_max and (differentiable
+                                      or more_work(alive, "volpath.shade")):
         seed, alive, beta = _roulette(integ, seed, torch.tensor(dep), alive,
                                       beta)
         seed, xi_nee = rng.random_floats(seed, n_nee)
@@ -305,7 +307,7 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
     scattering = torch.zeros(n, dtype=torch.bool, device=dev)
     cur_mid = torch.full((n,), -1, dtype=torch.int32, device=dev)
 
-    while bool((alive | (work_k < spp)).any()):
+    while more_work(alive | (work_k < spp), "volpath.regen"):
         # --- regenerate: dead lanes with samples left start the next one
         fresh = ~alive & (work_k < spp)
         L = _fold(integ, L, L_samp, fresh)

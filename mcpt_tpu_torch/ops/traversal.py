@@ -32,6 +32,7 @@ import os
 
 import torch
 
+from mcpt_tpu_torch import trace
 from mcpt_tpu_torch.ops import march_sweep as msw
 from mcpt_tpu_torch.ops import packet_sweep as pkt
 from mcpt_tpu_torch.ops import pair_sweep as psw
@@ -190,7 +191,8 @@ def _march_overflow(geom, o, d, t_min, t_max, overflow, any_hit) -> GeomHit:
     among N and launched with N / ray_block() blocks.  Returns [N] hits,
     invalid where `overflow` is False."""
     n = o.shape[0]
-    idx = overflow.nonzero()[:, 0]
+    with trace.span("sync", site="march_overflow"):
+        idx = overflow.nonzero()[:, 0]
     full = GeomHit(
         valid=torch.zeros(n, dtype=torch.bool, device=o.device),
         t=t_max.clone(),

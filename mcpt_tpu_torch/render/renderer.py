@@ -33,6 +33,7 @@ import warnings
 import numpy as np
 import torch
 
+from mcpt_tpu_torch import trace
 from mcpt_tpu_torch.integrators import bdpt as bdpt_integrator
 from mcpt_tpu_torch.integrators import path as path_integrator
 from mcpt_tpu_torch.integrators import volpath as volpath_integrator
@@ -117,7 +118,8 @@ class Renderer:
                 "MCPT_" + key.upper().replace(".", "_"), str(value))
         self.device = torch.device(device)
         self.config = config
-        self.scene = compile_scene(config, self.device)
+        with trace.span("scene.compile"):
+            self.scene = compile_scene(config, self.device)
         self.camera = make_camera(config.camera, self.device)
         self.integrator = config.integrator
 
@@ -156,45 +158,52 @@ class Renderer:
         if spp % spp_chunk:
             chunks.append(spp % spp_chunk)
         retries = int(os.environ.get("MCPT_TILE_RETRIES", "2"))
+        with trace.render_call():
+            frame = np.zeros((n_pix, 3), np.float32)
+            t0 = time.time()
+            done, total_work = 0, n_pix * spp
 
-        frame = np.zeros((n_pix, 3), np.float32)
-        t0 = time.time()
-        done, total_work = 0, n_pix * spp
+            def render_one(idx):
+                nonlocal done
+                acc = None
+                s_done = 0
+                for s in chunks:
+                    with trace.span("tile_chunk"):
+                        film = tile_fn(self.scene, cam, self.integrator, idx,
+                                       s, frame_base=frame_base,
+                                       spp_total=spp, sample_offset=s_done)
+                    contrib = film * float(s)
+                    acc = contrib if acc is None else acc + contrib
+                    s_done += s
+                    done += idx.shape[0] * s
+                    if progress:
+                        pct = 100.0 * done / total_work
+                        eta = (time.time() - t0) / done * (total_work - done)
+                        print(f"\r[info] render {pct:5.1f}%  eta {eta:6.1f}s",
+                              end="", flush=True)
+                film = acc / spp
+                with trace.span("sync", site="film"):
+                    return film.cpu().numpy()
 
-        def render_one(idx):
-            nonlocal done
-            acc = None
-            s_done = 0
-            for s in chunks:
-                film = tile_fn(self.scene, cam, self.integrator, idx, s,
-                               frame_base=frame_base, spp_total=spp,
-                               sample_offset=s_done)
-                contrib = film * float(s)
-                acc = contrib if acc is None else acc + contrib
-                s_done += s
-                done += idx.shape[0] * s
-                if progress:
-                    pct = 100.0 * done / total_work
-                    eta = (time.time() - t0) / done * (total_work - done)
-                    print(f"\r[info] render {pct:5.1f}%  eta {eta:6.1f}s",
-                          end="", flush=True)
-            return (acc / spp).cpu().numpy()
-
-        for start in range(0, n_pix, tile):
-            end = min(start + tile, n_pix)
-            idx = torch.arange(start, end, dtype=torch.int64, device=self.device)
-            done_before = done
-            for attempt in range(retries + 1):
-                try:
-                    frame[start:end] = render_one(idx)
-                    break
-                except RuntimeError as err:
-                    if isinstance(err, NotImplementedError) or attempt >= retries:
-                        raise
-                    warnings.warn(
-                        f"tile [{start}:{end}] lost ({type(err).__name__}); "
-                        f"re-rendering (attempt {attempt + 1})")
-                    done = done_before
-        if progress:
-            print(f"\r[info] render done in {time.time() - t0:.2f}s      ")
+            for start in range(0, n_pix, tile):
+                end = min(start + tile, n_pix)
+                idx = torch.arange(start, end, dtype=torch.int64,
+                                   device=self.device)
+                done_before = done
+                for attempt in range(retries + 1):
+                    try:
+                        frame[start:end] = render_one(idx)
+                        break
+                    except RuntimeError as err:
+                        if (isinstance(err, NotImplementedError)
+                                or attempt >= retries):
+                            raise
+                        warnings.warn(
+                            f"tile [{start}:{end}] lost "
+                            f"({type(err).__name__}); re-rendering "
+                            f"(attempt {attempt + 1})")
+                        done = done_before
+            if progress:
+                print(f"\r[info] render done in {time.time() - t0:.2f}s"
+                      "      ")
         return frame.reshape(cam.height, cam.width, 3)

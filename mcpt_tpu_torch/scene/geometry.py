@@ -15,14 +15,19 @@ AABB.  Both are built for every scene, as the reference builds them.
 from __future__ import annotations
 
 import os
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from mcpt_tpu_torch import native
+from mcpt_tpu_torch import native, trace
 from mcpt_tpu_torch.ops.march_sweep import super_boxes
 from mcpt_tpu_torch.scene.bvh import build_bvh
+
+#: host nanoseconds spent in commit_geometry's acceleration build, counted
+#: always (once a scene)
+accel_ns = 0
 
 
 class Geometry(NamedTuple):
@@ -252,33 +257,39 @@ def commit_geometry(tri_positions, tri_normals, tri_texcoords, tri_tangents,
         bl = np.linalg.norm(bitangents, axis=-1, keepdims=True)
         bitangents = bitangents / np.maximum(bl, 1e-12)
 
-    bvh = build_bvh(pos.min(axis=1), pos.max(axis=1), leaf_size)
-    order = bvh.order
-    real = order >= 0
-
-    def pick(a):
-        out = np.zeros((order.shape[0],) + a.shape[1:], a.dtype)
-        out[real] = a[order[real]]
-        return out
-
-    pos_s = pick(pos)
-    nor_s = pick(normals)
-    uv_s = pick(texcoords)
-    tan_s = pick(tangents)
-    bit_s = pick(bitangents)
-    opaque_s = pick(opaque)
-
-    packed = np.zeros((pos_s.shape[0], 12), np.float32)
-    packed[:, 0:3] = pos_s[:, 0]
-    packed[:, 3:6] = pos_s[:, 1] - pos_s[:, 0]
-    packed[:, 6:9] = pos_s[:, 2] - pos_s[:, 0]
-    packed[:, 9] = opaque_s.astype(np.float32)
-    m_tris, m_prim, m_min, m_max, chunk_of_prim = march_pack(pos_s, packed, p)
-
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-    super_min, super_max = super_boxes(dev(m_min), dev(m_max))
+    # the acceleration build: the BVH's order, the SAH march pack, the
+    # super-chunk unions
+    global accel_ns
+    t0 = time.perf_counter_ns()
+    with trace.span("scene.accel"):
+        bvh = build_bvh(pos.min(axis=1), pos.max(axis=1), leaf_size)
+        order = bvh.order
+        real = order >= 0
+
+        def pick(a):
+            out = np.zeros((order.shape[0],) + a.shape[1:], a.dtype)
+            out[real] = a[order[real]]
+            return out
+
+        pos_s = pick(pos)
+        nor_s = pick(normals)
+        uv_s = pick(texcoords)
+        tan_s = pick(tangents)
+        bit_s = pick(bitangents)
+        opaque_s = pick(opaque)
+
+        packed = np.zeros((pos_s.shape[0], 12), np.float32)
+        packed[:, 0:3] = pos_s[:, 0]
+        packed[:, 3:6] = pos_s[:, 1] - pos_s[:, 0]
+        packed[:, 6:9] = pos_s[:, 2] - pos_s[:, 0]
+        packed[:, 9] = opaque_s.astype(np.float32)
+        m_tris, m_prim, m_min, m_max, chunk_of_prim = march_pack(
+            pos_s, packed, p)
+        super_min, super_max = super_boxes(dev(m_min), dev(m_max))
+    accel_ns += time.perf_counter_ns() - t0
 
     return Geometry(
         p0=dev(pos_s[:, 0]),

@@ -28,6 +28,7 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 
+from mcpt_tpu_torch import trace
 from mcpt_tpu_torch.models.texture import TextureBuilder
 from mcpt_tpu_torch.scene import ior_lut, medium_lut
 from mcpt_tpu_torch.scene.ir import (
@@ -61,10 +62,11 @@ class _Ctx:
 
 
 def load_config(filename: str) -> RendererConfig:
-    tree = ET.parse(filename)
-    return _load_root(
-        tree.getroot(), os.path.dirname(os.path.abspath(filename))
-    )
+    with trace.span("scene.parse"):
+        tree = ET.parse(filename)
+        return _load_root(
+            tree.getroot(), os.path.dirname(os.path.abspath(filename))
+        )
 
 
 def load_config_string(xml: str, scene_dir: str = ".") -> RendererConfig:

@@ -14,6 +14,7 @@ end restores the environment.
 """
 
 import io
+import json
 import os
 import urllib.request
 
@@ -237,3 +238,18 @@ def test_progress_prints_percent_and_eta(scene, capsys):
     for pct in ("25.0%", "50.0%", "100.0%"):
         assert f"[info] render {pct:>6}  eta" in out
     assert "[info] render done in" in out
+
+
+def test_trace_out_writes_the_calls_spans(scene):
+    xml, tmp = scene
+    out = tmp / "trace.json"
+    assert cli.main(_args(xml, tmp / "out.exr", "--trace-out", str(out))) == 0
+    events = json.loads(out.read_text())["traceEvents"]
+    (call,) = [e for e in events if e["name"] == "render"]
+    chunks = [e for e in events if e["name"] == "tile_chunk"]
+    assert chunks
+    for e in chunks:
+        assert call["ts"] <= e["ts"]
+        assert e["ts"] + e["dur"] <= call["ts"] + call["dur"]
+    assert {"scene.parse", "scene.compile", "scene.accel", "trace",
+            "sync"} <= {e["name"] for e in events}
