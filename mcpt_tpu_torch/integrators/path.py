@@ -16,7 +16,10 @@ Two bodies, as in the reference: the unbatched one traces the
 continuation and then each NEE shadow ray on its own; the batched one
 (_shade_regen_batched, for large all-opaque march-routed scenes, the
 _use_batched_trace gate) traces the continuation and the previous
-vertex's shadow rays in ONE closest-hit call per iteration.
+vertex's shadow rays in ONE closest-hit call per iteration.  On the card
+the unbatched iteration (_regen_step) is captured once as a CUDA graph
+and replayed, so that the host issues one launch an iteration instead of
+its ~700 small ops (_regen_graphed, where graph_engages).
 
 `shade` is the chunked engine's body: one camera sample of a ray batch
 per call, its seed carried from call to call (render/renderer.py::
@@ -25,6 +28,7 @@ render_pixels), the same estimator and vertex draws.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import NamedTuple
 
@@ -34,7 +38,7 @@ from mcpt_tpu_torch import trace
 from mcpt_tpu_torch.models import bsdf as bsdfs
 from mcpt_tpu_torch.models import emitter as emitters
 from mcpt_tpu_torch.models import texture as textures
-from mcpt_tpu_torch.ops import rng
+from mcpt_tpu_torch.ops import dense_sweep, march_sweep, packet_sweep, rng
 from mcpt_tpu_torch.ops.math import (
     EPSILON,
     EPSILON_DISTANCE,
@@ -50,7 +54,8 @@ from mcpt_tpu_torch.ops.math import (
 )
 from mcpt_tpu_torch.ops.quadric import quadric_attrs, sample_quadric_row
 from mcpt_tpu_torch.ops.scene_intersect import scene_any, scene_closest
-from mcpt_tpu_torch.ops.traversal import DENSE_MAX_PRIMS, resolved_strategy
+from mcpt_tpu_torch.ops.traversal import (DENSE_MAX_PRIMS, resolved_strategy,
+                                          route)
 from mcpt_tpu_torch.ops.warps import sample_triangle_uniform, searchsorted_cdf
 from mcpt_tpu_torch.render.camera import generate_rays
 from mcpt_tpu_torch.scene.compile import SceneData
@@ -62,26 +67,30 @@ from mcpt_tpu_torch.scene.ir import EmitterType
 SHADOW_ALPHA_K = max(1, int(os.environ.get("MCPT_SHADOW_ALPHA_K", "4")))
 
 #: while tracing is on (mcpt_tpu_torch/trace.py): the wavefront loops'
-#: bodies run (here and in volpath.py), the lanes they carried, and the
-#: lanes with work at each loop test
+#: bodies run (here and in volpath.py), those of them that ran as a
+#: replay of a captured iteration (_regen_graphed), the lanes they
+#: carried, and the lanes with work at each loop test
 iterations = 0
+graph_iterations = 0
 lanes = 0
 live_lanes = 0
 
 
-def more_work(mask, site: str) -> bool:
+def more_work(mask, site: str, replay: bool = False) -> bool:
     """A wavefront loop's test: whether any lane of `mask` has work left
     (one reduction and one copy to the host).  While tracing, it reads
     the count of those lanes in its place, inside a `sync` span, and
-    counts the iteration the test lets run."""
+    counts the iteration the test lets run, as a replay where `replay`
+    says it runs as one."""
     if not trace.on:
         return bool(mask.any())
-    global iterations, lanes, live_lanes
+    global iterations, graph_iterations, lanes, live_lanes
     with trace.span("sync", site=site):
         live = int(mask.sum())
     live_lanes += live
     if live:
         iterations += 1
+        graph_iterations += replay
         lanes += mask.shape[0]
     return live > 0
 
@@ -717,6 +726,214 @@ def shade(scene: SceneData, integ, o, d, seed, differentiable: bool = False):
     return L, seed
 
 
+class _RegenState(NamedTuple):
+    """The unbatched regen body's lanes, carried from one iteration to
+    the next: the film sum and the open sample's radiance, throughput,
+    ray, MIS pdf, seed, liveness, vertex, samples started and (MCPT_COH)
+    origin-chunk key."""
+
+    L: torch.Tensor
+    L_samp: torch.Tensor
+    beta: torch.Tensor
+    o: torch.Tensor
+    d: torch.Tensor
+    pdf_mis: torch.Tensor
+    seed: torch.Tensor
+    alive: torch.Tensor
+    vert: torch.Tensor
+    work_k: torch.Tensor
+    coh: torch.Tensor
+
+
+def _regen_start(reg: _Regen) -> _RegenState:
+    """Every lane dead with all of its samples ahead: the first
+    iteration regenerates them all."""
+    n = reg.pixel_idx.shape[0]
+    dev = reg.pixel_idx.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    zeros3 = torch.zeros((n, 3), **f32)
+    d = zeros3.clone()
+    d[:, 2] = 1.0
+    return _RegenState(
+        L=zeros3.clone(), L_samp=zeros3.clone(),
+        beta=torch.ones((n, 3), **f32), o=zeros3.clone(), d=d,
+        pdf_mis=torch.full((n,), 1e12, **f32),
+        seed=rng.pixel_seed(reg.pixel_idx, reg.base),
+        alive=torch.zeros(n, dtype=torch.bool, device=dev),
+        vert=torch.zeros(n, dtype=torch.int32, device=dev),
+        work_k=torch.zeros(n, dtype=torch.int32, device=dev),
+        # -1 for a fresh camera ray, else the chunk of the hit the lane's
+        # rays start at
+        coh=torch.full((n,), -1, dtype=torch.int32, device=dev))
+
+
+def _regen_step(scene: SceneData, integ, camera, reg: _Regen,
+                st: _RegenState, n_nee: int, depth_cut: int,
+                use_coh: bool) -> _RegenState:
+    """One iteration of the unbatched regen body: regenerate, trace,
+    shade, NEE with its shadow rays traced at once, BSDF sample."""
+    L, L_samp, beta, o, d, pdf_mis, seed, alive, vert, work_k, coh = st
+    spp = reg.spp
+    # --- regenerate: dead lanes with samples left start the next one
+    fresh = ~alive & (work_k < spp)
+    L = _fold(integ, L, L_samp, fresh)
+    L_samp = _where3(fresh, torch.zeros_like(L_samp), L_samp)
+    o_new, d_new, seed_new = _camera_samples(camera, reg, fresh, work_k)
+    o = _where3(fresh, o_new, o)
+    d = _where3(fresh, d_new, d)
+    seed = torch.where(fresh, seed_new, seed)
+    beta = _where3(fresh, torch.ones_like(beta), beta)
+    pdf_mis = torch.where(fresh, torch.full_like(pdf_mis, 1e12), pdf_mis)
+    vert = torch.where(fresh, torch.zeros_like(vert), vert)
+    alive = alive | fresh
+    work_k = work_k + fresh.to(torch.int32)
+
+    # --- trace (dead lanes get t_max = 0: the traversal skips them;
+    # on the march route fresh camera rays and bounce continuations
+    # sort into separate blocks by their class bit)
+    coh = torch.where(fresh, torch.full_like(coh, -1), coh)
+    ghit = scene_closest(
+        scene, o, d,
+        t_max=torch.where(alive, torch.full_like(pdf_mis, MAX_FLOAT),
+                          torch.zeros_like(pdf_mis)),
+        sort_bias=(~fresh).int(),
+        coherence=coh if use_coh else None,
+    )
+    if use_coh:
+        coh = _origin_chunk(scene, ghit)
+    hit = interpolate_hit(scene, ghit, o, d)
+    hit, seed = apply_opacity(scene, hit, seed)
+    vert = vert + 1
+    L_samp = _escape(scene, L_samp, d, beta, pdf_mis, alive, hit, vert == 1)
+    L_add, ends = _emitter_hit(scene, integ, hit, d, beta, pdf_mis,
+                               alive, vert == 1)
+    L_samp = L_samp + L_add
+    alive = alive & hit.valid & ~ends & (vert < depth_cut)
+    seed, alive, beta = _roulette(integ, seed, vert, alive, beta)
+
+    # --- NEE, its shadow rays traced now
+    seed, xi_nee = rng.random_floats(seed, n_nee)
+    L_samp = L_samp + beta * _direct_lighting(
+        scene, hit, -d, alive, xi_nee, beta,
+        coherence=coh if use_coh else None)
+
+    seed, alive, beta, pdf_mis, o, d = _scatter(
+        scene, hit, -d, seed, alive, beta, pdf_mis)
+    return _RegenState(L, L_samp, beta, o, d, pdf_mis, seed, alive, vert,
+                       work_k, coh)
+
+
+def graph_engages(device_type: str, batched: bool, route: str) -> bool:
+    """Whether shade_regen replays its iteration as a CUDA graph: lanes on
+    CUDA, the unbatched body (the batched one sorts rays and runs K2
+    inside its iteration, still eager) and any route but the pair route,
+    whose overflow count syncs inside the iteration
+    (ops/traversal.py::_march_overflow).  `route`: ops/traversal.py::
+    route of the scene's geometry."""
+    return device_type == "cuda" and not batched and route != "pairs"
+
+
+#: the launch counters of the routes graph_engages admits: a replay
+#: credits each with what the captured iteration launched
+_LAUNCH_COUNTERS = (
+    (dense_sweep, "launches"), (dense_sweep, "any_hit_launches"),
+    (march_sweep, "launches"), (march_sweep, "any_hit_launches"),
+    (packet_sweep, "launches"), (packet_sweep, "any_hit_launches"),
+)
+
+
+class _RegenGraph:
+    """One iteration of the unbatched regen body captured as a CUDA graph
+    (torch.cuda.CUDAGraph, in its own memory pool), and the tensors it
+    reads and writes in place: the per-call inputs (pixel indices, frame
+    base) and the lanes' state.  Everything else it reads is baked in:
+    _graph_key."""
+
+    def __init__(self, pixel_idx, camera):
+        self.pixel_idx = pixel_idx.clone()
+        self.base = torch.zeros((), dtype=torch.int64,
+                                device=pixel_idx.device)
+        self.camera = camera  # held: its id is part of the key
+        self.state = None
+        self.graph = None
+        self.credit = ()
+
+    def capture(self, advance):
+        """Record advance(), which writes one iteration over the state.
+        The capture runs nothing, so the launch counters it moved are put
+        back and each replay credits them."""
+        before = [getattr(m, a) for m, a in _LAUNCH_COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+            advance()
+        self.credit = [getattr(m, a) - b
+                       for (m, a), b in zip(_LAUNCH_COUNTERS, before)]
+        for (m, a), b in zip(_LAUNCH_COUNTERS, before):
+            setattr(m, a, b)
+        self.graph = graph
+
+    def replay(self):
+        self.graph.replay()
+        for (m, a), c in zip(_LAUNCH_COUNTERS, self.credit):
+            setattr(m, a, getattr(m, a) + c)
+
+
+def _graph_key(integ, camera, reg: _Regen) -> tuple:
+    """What a captured iteration bakes in besides the scene, which holds
+    the graphs: the lanes, the sample parameters but the frame base, the
+    integrator, the camera, SHADOW_ALPHA_K and every MCPT_* setting (the
+    NEE draws, the depth cut and MCPT_COH follow from them and the
+    scene)."""
+    pix = reg.pixel_idx
+    return (pix.shape[0], pix.dtype, pix.device, reg.spp, reg.spp_total,
+            reg.sample_offset, dataclasses.astuple(integ), id(camera),
+            SHADOW_ALPHA_K,
+            tuple(sorted((k, v) for k, v in os.environ.items()
+                         if k.startswith("MCPT_"))))
+
+
+def _regen_graphed(scene: SceneData, integ, camera, reg: _Regen,
+                   n_nee: int, depth_cut: int, use_coh: bool) -> _RegenState:
+    """The unbatched regen loop with its iteration replayed as a CUDA
+    graph, the loop test on the host as in the eager loop.  The first
+    call of a key runs one iteration eagerly (kernel library, allocator
+    and lazily built tables settle), then captures; later calls of the
+    key replay from their first iteration.  The result is bit-equal to
+    the eager loop's."""
+    key = _graph_key(integ, camera, reg)
+    g = scene.graphs.get(key)
+    if g is None:
+        g = scene.graphs[key] = _RegenGraph(reg.pixel_idx, camera)
+    g.pixel_idx.copy_(reg.pixel_idx)
+    g.base.fill_(reg.base)
+    reg = reg._replace(pixel_idx=g.pixel_idx, base=g.base)
+    start = _regen_start(reg)
+    if g.state is None:
+        g.state = start
+    else:
+        for dst, src in zip(g.state, start):
+            dst.copy_(src)
+    st = g.state
+
+    def advance():
+        for dst, src in zip(st, _regen_step(scene, integ, camera, reg, st,
+                                            n_nee, depth_cut, use_coh)):
+            dst.copy_(src)
+
+    eager = g.graph is None
+    with torch.cuda.device(reg.pixel_idx.device):
+        while more_work(st.alive | (st.work_k < reg.spp), "path.regen",
+                        replay=not eager):
+            if eager:
+                advance()
+                eager = False
+                continue
+            if g.graph is None:
+                g.capture(advance)
+            g.replay()
+    return st._replace(seed=st.seed.clone())
+
+
 def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
                 frame_base=0, spp_total: int | None = None, sample_offset=0):
     """Fused spp x depth wavefront with ray regeneration
@@ -728,87 +945,30 @@ def shade_regen(scene: SceneData, integ, camera, pixel_idx, spp: int,
     Tea(pixel, frame_base + sample_offset + k).  Returns
     (film [N, 3] = mean over the spp samples, final seed).  Scenes the
     _use_batched_trace gate admits take _shade_regen_batched: the same
-    estimator and sample streams, one traversal per iteration."""
+    estimator and sample streams, one traversal per iteration.  Where
+    graph_engages, the unbatched iteration replays as a CUDA graph
+    (_regen_graphed), cached in the scene."""
     reg = _Regen(pixel_idx, (int(frame_base) + int(sample_offset)) & 0xFFFFFFFF,
                  spp, spp if spp_total is None else spp_total, sample_offset)
-    if _use_batched_trace(scene):
+    batched = _use_batched_trace(scene)
+    if batched:
         return _shade_regen_batched(scene, integ, camera, reg)
-    n = pixel_idx.shape[0]
-    dev = pixel_idx.device
     n_nee = nee_draw_count(scene)
     # with no lights (or depth_max 1) only the primary vertex matters
     depth_cut = (1 if (_no_lights(scene) or integ.depth_max <= 1)
                  else integ.depth_max)
-
-    f32 = dict(dtype=torch.float32, device=dev)
-    zeros3 = torch.zeros((n, 3), **f32)
-    work_k = torch.zeros(n, dtype=torch.int32, device=dev)
-    L = zeros3.clone()
-    L_samp = zeros3.clone()
-    beta = torch.ones((n, 3), **f32)
-    o = zeros3.clone()
-    d = zeros3.clone()
-    d[:, 2] = 1.0
-    pdf_mis = torch.full((n,), 1e12, **f32)
-    seed = rng.pixel_seed(pixel_idx, reg.base)
-    alive = torch.zeros(n, dtype=torch.bool, device=dev)
-    vert = torch.zeros(n, dtype=torch.int32, device=dev)
-    # origin-chunk keys (MCPT_COH): -1 for a fresh camera ray, else the
-    # chunk of the hit the lane's rays start at
     use_coh = _use_origin_chunk(scene)
-    coh = torch.full((n,), -1, dtype=torch.int32, device=dev)
-
-    while more_work(alive | (work_k < spp), "path.regen"):
-        # --- regenerate: dead lanes with samples left start the next one
-        fresh = ~alive & (work_k < spp)
-        L = _fold(integ, L, L_samp, fresh)
-        L_samp = _where3(fresh, zeros3, L_samp)
-        o_new, d_new, seed_new = _camera_samples(camera, reg, fresh, work_k)
-        o = _where3(fresh, o_new, o)
-        d = _where3(fresh, d_new, d)
-        seed = torch.where(fresh, seed_new, seed)
-        beta = _where3(fresh, torch.ones_like(beta), beta)
-        pdf_mis = torch.where(fresh, torch.full_like(pdf_mis, 1e12), pdf_mis)
-        vert = torch.where(fresh, torch.zeros_like(vert), vert)
-        alive = alive | fresh
-        work_k = work_k + fresh.to(torch.int32)
-
-        # --- trace (dead lanes get t_max = 0: the traversal skips them;
-        # on the march route fresh camera rays and bounce continuations
-        # sort into separate blocks by their class bit)
-        coh = torch.where(fresh, torch.full_like(coh, -1), coh)
-        ghit = scene_closest(
-            scene, o, d,
-            t_max=torch.where(alive, torch.full_like(pdf_mis, MAX_FLOAT),
-                              torch.zeros_like(pdf_mis)),
-            sort_bias=(~fresh).int(),
-            coherence=coh if use_coh else None,
-        )
-        if use_coh:
-            coh = _origin_chunk(scene, ghit)
-        hit = interpolate_hit(scene, ghit, o, d)
-        hit, seed = apply_opacity(scene, hit, seed)
-        vert = vert + 1
-        L_samp = _escape(scene, L_samp, d, beta, pdf_mis, alive, hit,
-                         vert == 1)
-        L_add, ends = _emitter_hit(scene, integ, hit, d, beta, pdf_mis,
-                                   alive, vert == 1)
-        L_samp = L_samp + L_add
-        alive = alive & hit.valid & ~ends & (vert < depth_cut)
-        seed, alive, beta = _roulette(integ, seed, vert, alive, beta)
-
-        # --- NEE, its shadow rays traced now
-        seed, xi_nee = rng.random_floats(seed, n_nee)
-        L_samp = L_samp + beta * _direct_lighting(
-            scene, hit, -d, alive, xi_nee, beta,
-            coherence=coh if use_coh else None)
-
-        seed, alive, beta, pdf_mis, o, d = _scatter(
-            scene, hit, -d, seed, alive, beta, pdf_mis)
-
+    if graph_engages(pixel_idx.device.type, batched, route(scene.geom)):
+        st = _regen_graphed(scene, integ, camera, reg, n_nee, depth_cut,
+                            use_coh)
+    else:
+        st = _regen_start(reg)
+        while more_work(st.alive | (st.work_k < spp), "path.regen"):
+            st = _regen_step(scene, integ, camera, reg, st, n_nee, depth_cut,
+                             use_coh)
     # fold the last sample of every lane (never followed by a regen)
-    L = _fold(integ, L, L_samp, torch.ones_like(alive))
-    return L / spp, seed
+    L = _fold(integ, st.L, st.L_samp, torch.ones_like(st.alive))
+    return L / spp, st.seed
 
 
 def _shade_regen_batched(scene: SceneData, integ, camera, reg: _Regen):

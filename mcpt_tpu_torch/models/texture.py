@@ -215,8 +215,7 @@ def eval_gradient(tex: TextureTables, tid, uv):
     in one fixed order, the same bits on the card and the CPU."""
     delta = 1e-4
     norm = 1.0 / delta
-    step = torch.tensor([[delta, 0.0], [0.0, delta]], dtype=uv.dtype,
-                        device=uv.device)
+    step = torch.eye(2, dtype=uv.dtype, device=uv.device) * delta
 
     def size(c):
         return sqrt(c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1]

@@ -25,6 +25,15 @@ def to_radians(deg):
     return deg * (PI / 180.0)
 
 
+def as_lanes(x, n: int, device) -> torch.Tensor:
+    """`x` as [n] float32 lanes on `device`: a tensor broadcast (a view),
+    a Python number filled there, with no copy from the host, which a
+    CUDA graph's capture refuses."""
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n)
+    return torch.full((n,), x, dtype=torch.float32, device=device)
+
+
 def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` for an in-range integer index of any shape, by
     index_select: the same gather, whose backward accumulates with

@@ -33,6 +33,7 @@ from mcpt_tpu_torch.ops.math import (
     EPSILON_DISTANCE,
     TWO_PI,
     arccos,
+    as_lanes,
     atan2,
     cos,
     cross,
@@ -182,9 +183,8 @@ def intersect_quadrics(q: QuadricTables, kinds, o, d, t_min, t_max,
     the reference's row-by-row sweep.  Returns (t [N] (t_max on a miss),
     idx [N] int32, -1 = miss, inside [N] bool)."""
     n = o.shape[0]
-    f32 = dict(dtype=torch.float32, device=o.device)
-    t_max = torch.as_tensor(t_max, **f32).expand(n)
-    t_min = torch.as_tensor(t_min, **f32).expand(n)
+    t_max = as_lanes(t_max, n, o.device)
+    t_min = as_lanes(t_min, n, o.device)
     rows = [i for i, (_, opaque) in enumerate(kinds) if opaque or not any_hit]
     if not rows:
         miss = torch.full((n,), -1, dtype=torch.int32, device=o.device)
@@ -225,11 +225,11 @@ def quadric_attrs(q: QuadricTables, kinds, idx, pos_w):
     n_l = pos_w.shape[0]
     f32 = dict(dtype=torch.float32, device=pos_w.device)
     normal = torch.zeros((n_l, 3), **f32)
-    normal[:, 2] = 1.0
+    normal[:, 2].fill_(1.0)
     tangent = torch.zeros((n_l, 3), **f32)
-    tangent[:, 0] = 1.0
+    tangent[:, 0].fill_(1.0)
     bitang = torch.zeros((n_l, 3), **f32)
-    bitang[:, 1] = 1.0
+    bitang[:, 1].fill_(1.0)
     uv = torch.zeros((n_l, 2), **f32)
     inst = torch.zeros(n_l, dtype=torch.int32, device=pos_w.device)
 

@@ -20,7 +20,11 @@ _LCG_ADD = 1013904223
 
 
 def as_u32(x, device=None) -> torch.Tensor:
-    """int64 tensor holding `x` modulo 2^32."""
+    """int64 tensor holding `x` modulo 2^32; a Python int is filled on
+    `device`, with no copy from the host (a CUDA graph's capture refuses
+    one)."""
+    if isinstance(x, int):
+        return torch.full((), x & _MASK, dtype=torch.int64, device=device)
     return torch.as_tensor(x, dtype=torch.int64, device=device) & _MASK
 
 

@@ -38,11 +38,11 @@ from mcpt_tpu_torch.ops import packet_sweep as pkt
 from mcpt_tpu_torch.ops import pair_sweep as psw
 from mcpt_tpu_torch.ops.dense_sweep import (DenseClosestHit, GeomHit,
                                             dense_sweep)
-from mcpt_tpu_torch.ops.math import EPSILON_DISTANCE, MAX_FLOAT
+from mcpt_tpu_torch.ops.math import EPSILON_DISTANCE, MAX_FLOAT, as_lanes
 
 __all__ = [
     "DENSE_MAX_PRIMS", "GeomHit", "intersect_closest", "intersect_any",
-    "resolved_strategy",
+    "resolved_strategy", "route",
 ]
 
 #: scenes up to this many padded primitives use the dense sweep
@@ -57,9 +57,7 @@ def _bounds(o, t_min, t_max):
     n = o.shape[0]
 
     def full(x, default):
-        x = default if x is None else x
-        x = torch.as_tensor(x, dtype=torch.float32, device=o.device)
-        return x.expand(n).contiguous()
+        return as_lanes(default if x is None else x, n, o.device).contiguous()
 
     return full(t_min, EPSILON_DISTANCE), full(t_max, MAX_FLOAT)
 
@@ -140,6 +138,14 @@ def _large_strategy() -> str:
     if s not in STRATEGIES:
         raise ValueError(f"MCPT_TRAVERSAL={s!r}: expected one of {STRATEGIES}")
     return s
+
+
+def route(geom) -> str:
+    """The traversal a geometry's rays take: 'dense' (kernel K1) up to
+    DENSE_MAX_PRIMS padded prims, else resolved_strategy's."""
+    if geom.packed_tris.shape[0] <= DENSE_MAX_PRIMS:
+        return "dense"
+    return resolved_strategy(geom)
 
 
 def resolved_strategy(geom) -> str:
@@ -296,7 +302,8 @@ def _trace(geom, o, d, t_min, t_max, any_hit, sort_bias=None,
            coherence=None) -> GeomHit:
     o, d = o.contiguous(), d.contiguous()
     lo, hi = _bounds(o, t_min, t_max)
-    if geom.packed_tris.shape[0] <= DENSE_MAX_PRIMS:
+    strategy = route(geom)
+    if strategy == "dense":
         if not any_hit:
             return GeomHit(*DenseClosestHit.apply(o, d, lo, hi,
                                                   geom.packed_tris))
@@ -305,7 +312,6 @@ def _trace(geom, o, d, t_min, t_max, any_hit, sort_bias=None,
     # the march, pair and packet records are detached (the reference's
     # _detached)
     o, d, lo, hi = o.detach(), d.detach(), lo.detach(), hi.detach()
-    strategy = resolved_strategy(geom)
     if strategy == "packet":
         return _intersect_packet(geom, o, d, lo, hi, any_hit)
     if strategy == "pairs":

@@ -139,7 +139,8 @@ class Renderer:
         A tile whose render raises a device fault (RuntimeError, which
         covers torch.cuda.OutOfMemoryError and torch.AcceleratorError) is
         rendered again on the same device through the same kernels, up to
-        MCPT_TILE_RETRIES times (default 2), each retry with a warning;
+        MCPT_TILE_RETRIES times (default 2), each retry with a warning and
+        with the scene's CUDA graphs dropped, to be captured again;
         after the last the error is raised.  Every pixel's samples are a
         pure function of (pixel, frame), so a retried tile equals the lost
         one.  torch reports a fault when a launch or the tile's copy to
@@ -198,6 +199,8 @@ class Renderer:
                         if (isinstance(err, NotImplementedError)
                                 or attempt >= retries):
                             raise
+                        # the fault may have struck inside a replay
+                        self.scene.graphs.clear()
                         warnings.warn(
                             f"tile [{start}:{end}] lost "
                             f"({type(err).__name__}); re-rendering "

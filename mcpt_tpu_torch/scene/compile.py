@@ -112,6 +112,11 @@ class SceneData:
     #: texture kinds the BSDF tables reach (the envmap's, the sun's and a
     #: spot's bitmaps stay out of surface shading)
     surface_kinds: tuple = (1, 2, 3)
+    #: the CUDA graphs captured on this scene, by key
+    #: (integrators/path.py::_regen_graphed): they die with it, and a copy
+    #: (replicate_scene, dataclasses.replace) starts with none
+    graphs: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
 
 def _quadric_row(info):

@@ -24,6 +24,12 @@ nanoseconds, so spans and a profiler trace lie on one timeline.
                load_config, compile_scene, and in it the BVH, the SAH
                march pack and the super-chunk unions
 
+The spans inside an iteration that replays as a CUDA graph
+(integrators/path.py::_regen_graphed: the unbatched regen body on the
+card) fire once, at its capture, and not at its replays: there the
+iteration's `trace` spans are missing, and its host time is the replay's
+launch, inside `tile_chunk`.
+
 `counters()` lists every counter of the renderer.  `chrome_trace()`
 gives a snapshot as Chrome trace-event JSON (Perfetto, chrome://tracing).
 """
@@ -135,9 +141,10 @@ def reset():
 
 def counters() -> dict:
     """Every counter of the renderer, as `module.name`: the traversal's
-    kernel launches and the acceleration build's nanoseconds (counted
-    always), the wavefront's iterations, lanes and live lanes (counted
-    while tracing is on)."""
+    kernel launches (a replayed iteration credits the launches its
+    capture recorded) and the acceleration build's nanoseconds (counted
+    always), the wavefront's iterations, those of them replayed as a CUDA
+    graph, lanes and live lanes (counted while tracing is on)."""
     from mcpt_tpu_torch.integrators import path
     from mcpt_tpu_torch.ops import (dense_sweep, march_sweep, packet_sweep,
                                     pair_sweep)
@@ -147,7 +154,8 @@ def counters() -> dict:
         "march_sweep": (march_sweep, ("launches", "any_hit_launches")),
         "packet_sweep": (packet_sweep, ("launches", "any_hit_launches")),
         "pair_sweep": (pair_sweep, ("corridor_launches", "pair_launches")),
-        "path": (path, ("iterations", "lanes", "live_lanes")),
+        "path": (path, ("iterations", "graph_iterations", "lanes",
+                        "live_lanes")),
         "geometry": (geometry, ("accel_ns",)),
     }
     return {f"{m}.{n}": getattr(mod, n)
